@@ -1,0 +1,32 @@
+"""passiveradar_torch — the passive bistatic radar processor on PyTorch + CUDA.
+
+The PyTorch port of the JAX/TPU package of this repository, for one
+NVIDIA Hopper card (H100).
+Module names mirror the JAX package one for one, so every function here has
+an obvious counterpart there. The port imports neither JAX nor anything of
+the JAX package; the JAX package stays the reference it is tested against.
+
+Device policy (``passiveradar_torch._device``): public entry points take
+``device=None``, meaning the CUDA card, and raise when CUDA is absent;
+``device="cpu"`` is the only way onto the CPU. Work is complex64 throughout.
+The one hand-written kernel of the main path is the polyphase
+regroup+matmul of the resampler (``ops/resample_kernel.py``,
+``csrc/mix_regroup.cu``).
+"""
+
+import torch
+
+from passiveradar_torch.config import RadarConfig, derive_config, load_config
+
+# Full-f32 contractions, as the JAX package pins Precision.HIGHEST
+# (its ops/fir.py): TF32 keeps only ~3 decimal digits.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RadarConfig",
+    "load_config",
+    "derive_config",
+]

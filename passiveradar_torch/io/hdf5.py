@@ -1,0 +1,198 @@
+"""Chunked, prefetching capture reader (port of the JAX package's
+io/hdf5.py).
+
+The read pattern mirrors the reference's ingest (main.py:44-120): estimate
+the inter-channel offset from the head of the capture, trim both channels
+into alignment, then serve fixed-length frame chunks. A background thread
+keeps the next batch's disk read in flight while the device computes.
+
+Both reference capture layouts are supported (PRconfig.yaml:6-18):
+separate per-channel datasets of interleaved IQ (float32 or int16; int16
+ships raw and converts on the device), and the single 4-way interleaved
+dataset [refI, refQ, srvI, srvQ, ...], de-multiplexed on the host.
+
+The capture is an HDF5 file (read with h5py) or, where h5py is not
+installed, a zarr v2 directory store holding the same dataset paths as
+arrays (``io/synthetic.write_synth_capture`` writes either, by the path's
+``.zarr`` suffix). h5py is imported only when an HDF5 file is opened.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+
+import numpy as np
+
+from passiveradar_torch._device import resolve_device
+from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.io.native import demux2, i16_to_f32
+from passiveradar_torch.io.writers import zarr_backend
+from passiveradar_torch.ops.xcorr import find_channel_offset
+
+
+class CaptureReader:
+    """Aligned frame access to a two-channel capture.
+
+    ``device`` is where the offset search runs (default: the CUDA card).
+    """
+
+    def __init__(self, cfg: RadarConfig, path: str | None = None,
+                 estimate_offset: bool = True, max_offset_lags: int = 5_000_000,
+                 int16_scale: float | None = None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.path = path or cfg.input_file
+        self.int16_scale = (cfg.int16_scale if int16_scale is None
+                            else int16_scale)
+        self._file = None
+        if os.path.isdir(self.path):            # zarr v2 directory store
+            zarr = zarr_backend()
+
+            def dataset(key):
+                return zarr.open(os.path.join(self.path, key.strip("/")),
+                                 mode="r")
+        else:
+            import h5py
+            self._file = h5py.File(self.path, "r")
+            dataset = self._file.__getitem__
+        self.interleaved = bool(cfg.interleaved_input_channels)
+        if self.interleaved:
+            self._data = dataset(cfg.interleaved_data_path)
+        else:
+            self._ref = dataset(cfg.input_ref_path)
+            self._srv = dataset(cfg.input_srv_path)
+        # separate-channel int16 captures ship raw int16 to the device,
+        # which multiplies by cfg.int16_scale: only valid when this reader's
+        # scale agrees with the config's
+        self._ships_int16 = (not self.interleaved
+                             and self._ref.dtype == np.int16
+                             and self.int16_scale == cfg.int16_scale)
+        self.offset = 0
+        if estimate_offset:
+            self.offset = self._estimate_offset(max_offset_lags)
+        self._apply_offset()
+
+    def _to_f32(self, raw: np.ndarray) -> np.ndarray:
+        if raw.dtype == np.int16:
+            return i16_to_f32(raw, self.int16_scale)
+        return np.asarray(raw, np.float32)
+
+    def _estimate_offset(self, max_lags: int) -> int:
+        """Offset from the capture head (reference main.py:50-54 / 79-83)."""
+        if self.interleaved:
+            head = min(20 * self.cfg.cpi_samples, len(self._data))
+            refc, srvc = demux2(self._to_f32(np.asarray(self._data[:head])),
+                                self.int16_scale)
+        else:
+            head = min(10 * self.cfg.cpi_samples, len(self._ref),
+                       len(self._srv)) // 2 * 2
+            refc = self._to_f32(np.asarray(self._ref[:head])).view(np.complex64)
+            srvc = self._to_f32(np.asarray(self._srv[:head])).view(np.complex64)
+        nl = min(max_lags, refc.shape[0] - 1)
+        return int(find_channel_offset(refc, srvc, 1, nl, device=self.device))
+
+    def _apply_offset(self):
+        off = self.offset   # in complex channel samples
+        if off > 0:
+            self._ref_off, self._srv_off = off, 0
+        else:
+            self._ref_off, self._srv_off = 0, -off
+        self.frame_len_c = self.cfg.input_chunk_length // 2
+        self.frame_len = self.cfg.input_chunk_length
+        if self.interleaved:
+            usable = len(self._data) // 4 - abs(off)
+        else:
+            usable = min(len(self._ref), len(self._srv)) // 2 - abs(off)
+        self.num_frames = usable // self.frame_len_c
+
+    def read_raw_frames(self, start: int, count: int):
+        """(count, input_chunk_length) float32 interleaved IQ per channel."""
+        if self.interleaved:
+            ref, srv = self.read_iq_frames(start, count)
+            return (ref.view(np.float32).reshape(count, self.frame_len),
+                    srv.view(np.float32).reshape(count, self.frame_len))
+        s_c = start * self.frame_len_c
+        e_c = s_c + count * self.frame_len_c
+        ref = self._to_f32(np.asarray(
+            self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)]))
+        srv = self._to_f32(np.asarray(
+            self._srv[2 * (s_c + self._srv_off):2 * (e_c + self._srv_off)]))
+        return (ref.reshape(count, self.frame_len),
+                srv.reshape(count, self.frame_len))
+
+    @property
+    def pair_dtype(self):
+        """dtype of read_pair_frames: int16 when the capture ships raw."""
+        return np.int16 if self._ships_int16 else np.float32
+
+    def read_pair_frames(self, start: int, count: int):
+        """(count, frame_len_c, 2) IQ pairs in ``pair_dtype`` — the device
+        dispatch format (raw int16 pairs for separate-channel int16
+        captures, converted on the device)."""
+        if not self._ships_int16:
+            ref, srv = self.read_raw_frames(start, count)
+            return (ref.reshape(count, self.frame_len_c, 2),
+                    srv.reshape(count, self.frame_len_c, 2))
+        s_c = start * self.frame_len_c
+        e_c = s_c + count * self.frame_len_c
+        ref = np.asarray(
+            self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)])
+        srv = np.asarray(
+            self._srv[2 * (s_c + self._srv_off):2 * (e_c + self._srv_off)])
+        return (ref.reshape(count, self.frame_len_c, 2),
+                srv.reshape(count, self.frame_len_c, 2))
+
+    def read_iq_frames(self, start: int, count: int):
+        """(count, input_chunk_length//2) complex64 per channel."""
+        if not self.interleaved:
+            ref, srv = self.read_raw_frames(start, count)
+            return ref.view(np.complex64), srv.view(np.complex64)
+        s_c = start * self.frame_len_c
+        e_c = s_c + count * self.frame_len_c
+        lo = s_c + min(self._ref_off, self._srv_off)
+        hi = e_c + max(self._ref_off, self._srv_off)
+        raw = np.asarray(self._data[4 * lo:4 * hi])
+        ref, srv = demux2(raw if raw.dtype == np.int16
+                          else np.asarray(raw, np.float32), self.int16_scale)
+        r0 = s_c + self._ref_off - lo
+        s0 = s_c + self._srv_off - lo
+        n = count * self.frame_len_c
+        return (ref[r0:r0 + n].reshape(count, self.frame_len_c),
+                srv[s0:s0 + n].reshape(count, self.frame_len_c))
+
+    def close(self):
+        if self._file is not None:
+            self._file.close()
+
+
+class PrefetchReader:
+    """Wraps a CaptureReader with a one-batch-ahead background thread."""
+
+    def __init__(self, reader: CaptureReader, batches, mode: str = "pair"):
+        self.reader = reader
+        self.num_frames = reader.num_frames
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._batches = list(batches)
+        self._read = getattr(reader, {"iq": "read_iq_frames",
+                                      "pair": "read_pair_frames"}[mode])
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        try:
+            for start, count in self._batches:
+                self._q.put((start, count, self._read(start, count)))
+            self._q.put(None)
+        except BaseException as e:  # hand the failure to the consumer
+            self._q.put(e)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item

@@ -1,0 +1,126 @@
+"""Synthetic two-channel FM capture generation (numpy; port of the host part
+of the JAX package's io/synthetic.py).
+
+Captures follow the reference's HDF5 format (PRconfig.yaml:1-21): per
+channel a stream of real interleaved IQ samples at the input rate, the radio
+channel ``offset_freq`` away from the capture centre. The reference channel
+receives the direct signal; the surveillance channel an attenuated direct
+copy (clutter) plus point-target echoes with bistatic delay and Doppler,
+plus receiver noise. Each injected target must reappear at its (delay,
+Doppler) cell of the range-Doppler maps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+
+from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.io.writers import zarr_backend
+
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    delay_samples: int      # bistatic delay at the *input* sample rate
+    doppler_hz: float       # Doppler shift
+    amplitude: float        # echo amplitude relative to the direct signal
+
+
+def _fm_like_baseband(rng, n: int, bandwidth: float, fs: float) -> np.ndarray:
+    """A noise-modulated FM-ish signal: constant envelope, ~bandwidth wide."""
+    dev = 0.4 * bandwidth / 2
+    msg = rng.standard_normal(n)
+    msg = np.convolve(msg, np.ones(8) / 8, mode="same")
+    phase = 2 * np.pi * dev * np.cumsum(msg) / fs
+    return np.exp(1j * phase)
+
+
+def synth_capture_arrays(cfg: RadarConfig, n_frames: int,
+                         targets=(Target(30, 12.0, 0.05),),
+                         direct_gain: float = 0.5,
+                         noise_level: float = 1e-3,
+                         channel_offset: int = 0,
+                         seed: int = 0):
+    """(ref_stream, srv_stream) real interleaved float32 IQ arrays, long
+    enough for ``n_frames`` frames (plus one, plus the offset margin).
+    ``channel_offset`` > 0 delays the surveillance channel."""
+    rng = np.random.default_rng(seed)
+    fs = float(cfg.input_sample_rate)
+    n_complex = (cfg.input_chunk_length // 2) * (n_frames + 1) + abs(
+        channel_offset)
+
+    base = _fm_like_baseband(rng, n_complex, cfg.channel_bandwidth, fs)
+    t = np.arange(n_complex) / fs
+    # the channel sits at -offset_freq so the pipeline's shift brings it home
+    carrier = np.exp(-1j * 2 * np.pi * cfg.offset_freq * t)
+
+    ref = base * carrier
+    srv = direct_gain * base
+    for tg in targets:
+        echo = np.roll(base, tg.delay_samples) * np.exp(
+            1j * 2 * np.pi * tg.doppler_hz * t)
+        srv = srv + tg.amplitude * echo
+    srv = srv * carrier
+    srv = srv + noise_level * (rng.standard_normal(n_complex)
+                               + 1j * rng.standard_normal(n_complex))
+    ref = ref + noise_level * (rng.standard_normal(n_complex)
+                               + 1j * rng.standard_normal(n_complex))
+
+    if channel_offset > 0:
+        srv = np.concatenate([np.zeros(channel_offset, complex),
+                              srv[:-channel_offset]])
+    elif channel_offset < 0:
+        srv = np.concatenate([srv[-channel_offset:],
+                              np.zeros(-channel_offset, complex)])
+
+    def interleave(x):
+        out = np.empty(2 * len(x), np.float32)
+        out[0::2] = np.real(x)
+        out[1::2] = np.imag(x)
+        return out
+
+    return interleave(ref), interleave(srv)
+
+
+def write_synth_capture(path: str, cfg: RadarConfig, n_frames: int,
+                        interleaved: bool | None = None,
+                        dtype=np.float32, **kwargs) -> None:
+    """Write a synthetic capture in the reference's layout.
+
+    An HDF5 file (h5py), or a zarr v2 directory store with the same dataset
+    paths when ``path`` ends in ``.zarr`` (uncompressed, 4 Mi-element
+    chunks). interleaved=True writes the single-dataset 4-way interleaved
+    layout ([refI, refQ, srvI, srvQ, ...]); default follows
+    cfg.interleaved_input_channels. dtype int16 emulates SDR captures.
+    """
+    ref, srv = synth_capture_arrays(cfg, n_frames, **kwargs)
+    if interleaved is None:
+        interleaved = cfg.interleaved_input_channels
+    if dtype == np.int16:
+        scale = 32000.0 / max(np.max(np.abs(ref)), np.max(np.abs(srv)))
+        ref = (ref * scale).astype(np.int16)
+        srv = (srv * scale).astype(np.int16)
+    if interleaved:
+        n_pairs = min(len(ref), len(srv)) // 2
+        data = np.empty(4 * n_pairs, dtype=dtype)
+        data[0::4] = ref[0:2 * n_pairs:2]
+        data[1::4] = ref[1:2 * n_pairs:2]
+        data[2::4] = srv[0:2 * n_pairs:2]
+        data[3::4] = srv[1:2 * n_pairs:2]
+        datasets = {cfg.interleaved_data_path: data}
+    else:
+        datasets = {cfg.input_ref_path: ref, cfg.input_srv_path: srv}
+    if path.endswith(".zarr"):
+        zarr = zarr_backend()
+        for key, arr in datasets.items():
+            z = zarr.open(os.path.join(path, key.strip("/")), mode="w",
+                          shape=arr.shape, chunks=(min(arr.size, 1 << 22),),
+                          dtype=arr.dtype, compressor=None)
+            z[:] = arr
+        return
+    import h5py
+    with h5py.File(path, "w") as f:
+        for key, arr in datasets.items():
+            f.create_dataset(key, data=arr)

@@ -1,0 +1,238 @@
+"""The end-to-end processing pipeline on torch tensors.
+
+Port of the JAX package's pipeline.py for one device. Per batch of frames:
+
+    raw per-frame chunks (int16 / float32 IQ pairs)
+      → fused down-conversion + polyphase resample   (main.py:122-166;
+        the CUDA kernel of ops/resample_kernel.py does the bulk)
+      → multi-Doppler-bin LS clutter removal          (main.py:168-176)
+      → 50% CPI-overlap halo                          (main.py:178-181)
+      → windowed fast CAF → range-Doppler frames      (main.py:183-194)
+
+``run_capture`` is the host loop: fixed bf+2-frame buffers with a one-frame
+halo margin on each side, pinned host buffers, non-blocking copies both
+ways, and one batch of device work in flight while the host writes the
+previous batch's maps and the prefetch thread reads the next one from disk.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from passiveradar_torch._device import resolve_device
+from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.io.hdf5 import PrefetchReader
+from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops.clutter import ls_filter_multiple
+from passiveradar_torch.ops.fir import mix_resample_poly_batch
+from passiveradar_torch.ops.mixer import block_phase_offsets
+from passiveradar_torch.ops.util import deinterleave_batch
+from passiveradar_torch.parallel.halo import overlap_frames
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev, non_blocking=True)
+
+
+def _preprocess_impl(raw: torch.Tensor, phases: torch.Tensor,
+                     cfg: RadarConfig) -> torch.Tensor:
+    """Deinterleave → down-convert → resample one channel's frame batch.
+
+    raw: (F, L//2, 2) float32 or int16 IQ pairs, (F, L//2) complex64, or
+    (F, L) float32 interleaved IQ. Returns (F, output_chunk_length)
+    complex64 at the IF rate.
+    """
+    if raw.dtype == torch.int16:
+        # exact: every int16 is representable in float32
+        raw = raw.float() * float(np.float32(cfg.int16_scale))
+    iq = raw if (raw.is_complex() or raw.dim() == 3) else \
+        deinterleave_batch(raw)
+    resampled = mix_resample_poly_batch(iq, phases, cfg.offset_freq,
+                                        cfg.input_sample_rate,
+                                        cfg.resamp_up, cfg.resamp_dn,
+                                        padtype="line")
+    # per-chunk resample output may be ±1 sample off output_chunk_length
+    out_len = cfg.output_chunk_length
+    cur = resampled.shape[1]
+    if cur < out_len:
+        return torch.nn.functional.pad(resampled, (0, out_len - cur))
+    return resampled[:, :out_len]
+
+
+def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
+                  cfg: RadarConfig) -> torch.Tensor:
+    """Clutter cancellation over a frame batch ('ls_multiple' or 'none')."""
+    if cfg.clutter_method == "none":
+        return srv
+    if cfg.clutter_method != "ls_multiple":
+        raise NotImplementedError(
+            f"clutter_method {cfg.clutter_method!r} is not ported yet")
+    return ls_filter_multiple(ref, srv, cfg.num_range_cells,
+                              cfg.IF_sample_rate, cfg.clutter_doppler_bins,
+                              impl=cfg.clutter_impl, solver=cfg.clutter_solver)
+
+
+@functools.lru_cache(maxsize=8)
+def _window_tensor(spec, n: int, device: torch.device):
+    win = resolve_window(spec, n)
+    return None if win is None else torch.from_numpy(win).to(device)
+
+
+def _caf_batch_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
+                    cfg: RadarConfig) -> torch.Tensor:
+    """Halo overlap + windowed CAF: (F, output_chunk_length) pairs →
+    (F, num_doppler_cells, num_range_cells+1) complex64 maps."""
+    if cfg.window_overlap:
+        ref = overlap_frames(ref, cfg.window_overlap)
+        srv_clean = overlap_frames(srv_clean, cfg.window_overlap)
+    win = _window_tensor(cfg.caf_window, cfg.caf_input_samples, ref.device)
+    return fast_xambg(ref, srv_clean, cfg.num_range_cells,
+                      cfg.num_doppler_cells, window=win,
+                      short_filt=cfg.caf_short_filt)
+
+
+def _process_frames_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
+                         phases: torch.Tensor,
+                         cfg: RadarConfig) -> torch.Tensor:
+    ref = _preprocess_impl(raw_ref, phases, cfg)
+    srv = _preprocess_impl(raw_srv, phases, cfg)
+    return _caf_batch_impl(ref, _clutter_impl(ref, srv, cfg), cfg)
+
+
+def preprocess_batch(raw, phases, cfg: RadarConfig, device=None):
+    """Preprocess one channel's frame batch on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    return _preprocess_impl(_to_device(raw, dev), _to_device(phases, dev),
+                            cfg)
+
+
+def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
+                   device=None) -> torch.Tensor:
+    """Full chain for a self-contained batch of frames (halo from within the
+    batch, zero at its edges). raw_*: (F, input_chunk_length) float32 or
+    (F, input_chunk_length//2, 2) IQ pairs; phases: (F,) float32. Returns
+    (F, num_doppler_cells, num_range_cells+1) complex64 on ``device``."""
+    dev = resolve_device(device)
+    return _process_frames_impl(_to_device(raw_ref, dev),
+                                _to_device(raw_srv, dev),
+                                _to_device(phases, dev), cfg)
+
+
+def frame_phases(cfg: RadarConfig, frame_indices: Sequence[int]) -> np.ndarray:
+    """Mixing phases for a set of global frame indices (main.py:125-130)."""
+    n = int(np.max(frame_indices)) + 1 if len(frame_indices) else 0
+    all_phases = block_phase_offsets(
+        n, cfg.input_chunk_length // 2, cfg.offset_freq,
+        cfg.input_sample_rate)
+    return all_phases[np.asarray(frame_indices, dtype=np.int64)]
+
+
+def capture_frame_count(reader, cfg: RadarConfig) -> int:
+    """Frames a run over ``reader`` will produce: min(capture frames,
+    cfg.num_frames), minus one under cfg.strict_frame_parity (the
+    reference's final-chunk trim, main.py:116-120)."""
+    total = min(reader.num_frames, cfg.num_frames)
+    if cfg.strict_frame_parity and total > 0:
+        total -= 1
+    return total
+
+
+def run_capture(reader, writer, cfg: RadarConfig,
+                batch_frames: int | None = None, progress: bool = True,
+                device=None) -> int:
+    """Host loop: stream a capture through the device pipeline in batches.
+
+    reader: io.hdf5.CaptureReader-like (``num_frames``, ``read_pair_frames``
+    or ``read_iq_frames``); writer: io.writers.MapWriter-like
+    (``write(frames, start)``, ``frames_done``). Every batch is one fixed
+    buffer of bf+2 frames whose slots 1..count hold the frames written; the
+    extra slots carry the neighbouring frames (zero at the capture edges and
+    past the end) so the CPI-overlap halo at batch boundaries is exact.
+    Resume skips the frames the writer already holds. Returns the frame
+    count of the run.
+    """
+    dev = resolve_device(device)
+    total = capture_frame_count(reader, cfg)
+    bf = batch_frames or cfg.frame_batch
+
+    # the frame after the last one written is read as the right margin
+    # when the capture holds it; under strict_frame_parity the reference
+    # trims to N-1 frames first and overlaps with boundary=0
+    # (main.py:116-120 then 180-181), so the last frame's right halo is zero
+    margin_hi = total < reader.num_frames and not cfg.strict_frame_parity
+
+    batches = []
+    done = getattr(writer, "frames_done", 0)
+    while done < total:
+        count = min(bf, total - done)
+        lo = done - 1 if done > 0 else 0
+        hi = min(total + (1 if margin_hi else 0), done + count + 1)
+        batches.append((done, count, lo, hi))
+        done += count
+
+    pair_mode = hasattr(reader, "read_pair_frames")
+    pdt = reader.pair_dtype if pair_mode else np.float32
+    prefetch = PrefetchReader(reader, [(lo, hi - lo) for _, _, lo, hi in batches],
+                              mode="pair" if pair_mode else "iq")
+
+    lc = cfg.input_chunk_length // 2
+    buf_n = bf + 2
+    pin = dev.type == "cuda"
+    tdt = torch.int16 if pdt == np.int16 else torch.float32
+    map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
+    # two sets of host buffers, used in turn: set s is refilled two batches
+    # after its copies were queued, by when finish() has waited on them
+    host = [dict(ref=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
+                 srv=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
+                 out=torch.empty(map_shape, dtype=torch.complex64,
+                                 pin_memory=pin))
+            for _ in range(2)]
+    done = getattr(writer, "frames_done", 0)
+
+    def finish(item):
+        nonlocal done
+        start, count, maps, event = item
+        if event is not None:
+            event.synchronize()
+        writer.write(maps[1:1 + count].numpy(), start)
+        done += count
+        if progress:
+            print(f"\r  processed {done}/{total} frames", end="", flush=True)
+
+    pending = None
+    for i, ((start, count, lo, hi), (_, _, (ref_raw, srv_raw))) in enumerate(
+            zip(batches, prefetch)):
+        bufs = host[i % 2]
+        slot0 = 1 - (start - lo)
+        nread = hi - lo
+        for key, raw in (("ref", ref_raw), ("srv", srv_raw)):
+            buf = bufs[key].numpy()
+            buf[:slot0] = 0
+            buf[slot0 + nread:] = 0
+            buf[slot0:slot0 + nread] = raw if pair_mode else \
+                raw.view(np.float32).reshape(nread, lc, 2)
+        phases = np.zeros(buf_n, np.float32)
+        phases[slot0:slot0 + nread] = frame_phases(cfg, list(range(lo, hi)))
+        maps = _process_frames_impl(bufs["ref"].to(dev, non_blocking=True),
+                                    bufs["srv"].to(dev, non_blocking=True),
+                                    torch.from_numpy(phases).to(dev), cfg)
+        event = None
+        if pin:
+            bufs["out"].copy_(maps, non_blocking=True)
+            maps = bufs["out"]
+            event = torch.cuda.Event()
+            event.record()
+        if pending is not None:
+            finish(pending)
+        pending = (start, count, maps, event)
+    if pending is not None:
+        finish(pending)
+    if progress:
+        print()
+    return total

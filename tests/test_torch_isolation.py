@@ -1,0 +1,92 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "passiveradar_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_pulls_in_no_jax():
+    """A fresh interpreter imports every module of the port, with h5py
+    blocked; neither jax nor passiveradar_tpu may end up in sys.modules."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['h5py'] = None   # the card's host may lack h5py\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', "
+        "'passiveradar_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_source_names_no_jax():
+    """A text scan of the package: no import of jax, and no mention of the
+    JAX package's module name anywhere (code, comments or docstrings)."""
+    imp = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.MULTILINE)
+    for path in sorted(PKG.rglob("*")):
+        if path.suffix not in (".py", ".cu"):
+            continue
+        text = path.read_text()
+        assert "passiveradar_tpu" not in text, path
+        assert not imp.search(text), path
+
+
+def test_default_device_raises_without_cuda(tmp_path):
+    """Entry points default to the CUDA card and raise when it is absent;
+    only device='cpu' reaches the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    from passiveradar_torch._device import resolve_device
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.pipeline import process_frames
+    from passiveradar_torch.ops.xcorr import find_channel_offset
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+    cfg = derive_config(dict(input_sample_rate=49152,
+                             input_center_freq=1_000_000,
+                             channel_freq=990_170, channel_bandwidth=12800,
+                             cpi_seconds_nominal=1.0))
+    raw = np.zeros((1, cfg.input_chunk_length), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        process_frames(raw, raw, np.zeros(1, np.float32), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        find_channel_offset(np.ones(64, np.complex64),
+                            np.ones(64, np.complex64), 1, 4)
+
+
+def test_cli_default_device_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    import yaml
+    from passiveradar_torch.cli.process import main
+    cfg_path = tmp_path / "c.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(
+        input_file=str(tmp_path / "missing.hdf5"), input_sample_rate=49152,
+        input_center_freq=1_000_000, channel_freq=990_170,
+        channel_bandwidth=12800, cpi_seconds_nominal=1.0)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--config", str(cfg_path)])

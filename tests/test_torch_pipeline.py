@@ -1,0 +1,241 @@
+"""The port's frame pipeline and CLI against the JAX package, on the CPU.
+
+TINY geometry (copied from tests/test_pipeline.py): cpi 16384 samples, a
+1/3 resample, 256 Doppler × 23 range cells. The bound is 1e-4 of the map
+peak with the argmax cell equal in every frame (the golden pipeline bound
+is 2e-3; the port's whole chain, clutter included, stays far inside it).
+"""
+
+import os
+
+import h5py
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+torch.set_num_threads(1)
+
+from passiveradar_tpu.config import derive_config as j_derive  # noqa: E402
+from passiveradar_tpu.io.synthetic import Target as JTarget  # noqa: E402
+from passiveradar_tpu.io.synthetic import synth_capture_arrays  # noqa: E402
+from passiveradar_tpu.pipeline import \
+    frame_phases as j_frame_phases  # noqa: E402
+from passiveradar_tpu.pipeline import \
+    process_frames as j_process_frames  # noqa: E402
+from passiveradar_torch import pipeline as tp  # noqa: E402
+from passiveradar_torch.config import derive_config as t_derive  # noqa: E402
+from passiveradar_torch.io.synthetic import (  # noqa: E402
+    Target, write_synth_capture)
+from passiveradar_torch.io.synthetic import \
+    synth_capture_arrays as t_synth  # noqa: E402
+
+TINY = dict(
+    input_file="",
+    input_ref_path="/data/ref",
+    input_srv_path="/data/srv",
+    range_doppler_map_ftype="hdf5",
+    output_fname="tiny_maps",
+    num_frames=8,
+    input_sample_rate=49152,
+    input_center_freq=1_000_000,
+    channel_freq=990_170,        # offset 9830 → nonzero per-frame phases
+    channel_bandwidth=12800,
+    cpi_seconds_nominal=1.0,
+    max_doppler_nominal=128.0,
+    max_range_nominal=400.0,
+    overlap_cpi=True,
+    frame_batch=4,
+)
+TOL = 1e-4
+
+
+def _assert_maps_agree(got, want):
+    assert got.shape == want.shape
+    assert np.all(np.isfinite(got))
+    assert np.max(np.abs(got - want)) < TOL * np.max(np.abs(want))
+    for f in range(want.shape[0]):
+        assert (np.unravel_index(np.argmax(np.abs(got[f])), got[f].shape)
+                == np.unravel_index(np.argmax(np.abs(want[f])),
+                                    want[f].shape)), f
+
+
+def test_config_derivation_equal():
+    for params in (TINY, dict(TINY, overlap_cpi=False),
+                   dict(TINY, input_sample_rate=2_400_000,
+                        input_center_freq=102_000_000,
+                        channel_freq=101_900_000, channel_bandwidth=200_000,
+                        cpi_seconds_nominal=2.0, max_doppler_nominal=256.0,
+                        max_range_nominal=200.0)):
+        assert t_derive(params).as_dict() == j_derive(params).as_dict()
+
+
+def test_synth_capture_arrays_equal():
+    cfg_j, cfg_t = j_derive(TINY), t_derive(TINY)
+    tg = (40, 20.0, 0.1)
+    a = synth_capture_arrays(cfg_j, 2, targets=(JTarget(*tg),), seed=3,
+                             channel_offset=5)
+    b = t_synth(cfg_t, 2, targets=(Target(*tg),), seed=3, channel_offset=5)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_frame_phases_equal():
+    cfg_j, cfg_t = j_derive(TINY), t_derive(TINY)
+    idx = [0, 3, 4, 9]
+    np.testing.assert_array_equal(tp.frame_phases(cfg_t, idx),
+                                  j_frame_phases(cfg_j, idx))
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "pairs"])
+def test_process_frames_matches_jax(layout):
+    cfg_j, cfg_t = j_derive(TINY), t_derive(TINY)
+    n_frames = 4
+    ref, srv = synth_capture_arrays(
+        cfg_j, n_frames, targets=(JTarget(40, 20.0, 0.1),), seed=0)
+    L = cfg_j.input_chunk_length
+    ref = ref[:n_frames * L].reshape(n_frames, L)
+    srv = srv[:n_frames * L].reshape(n_frames, L)
+    phases = j_frame_phases(cfg_j, list(range(n_frames)))
+    want = np.asarray(j_process_frames(jnp.asarray(ref), jnp.asarray(srv),
+                                       jnp.asarray(phases), cfg_j))
+    if layout == "pairs":
+        ref = ref.reshape(n_frames, L // 2, 2)
+        srv = srv.reshape(n_frames, L // 2, 2)
+    got = tp.process_frames(ref, srv, phases, cfg_t, device="cpu").numpy()
+    _assert_maps_agree(got, want)
+
+
+def test_int16_preprocess_matches_float(rng):
+    """int16 pairs × int16_scale equal the host-converted float32 path."""
+    cfg = t_derive(dict(TINY, int16_scale=1 / 4096))
+    raw = rng.integers(-3000, 3000, (2, cfg.input_chunk_length // 2, 2),
+                       dtype=np.int16)
+    ph = np.zeros(2, np.float32)
+    a = tp.preprocess_batch(raw, ph, cfg, device="cpu")
+    b = tp.preprocess_batch(raw.astype(np.float32) * np.float32(1 / 4096), ph,
+                            cfg, device="cpu")
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert a.shape == (2, cfg.output_chunk_length)
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    ws = tmp_path_factory.mktemp("torch_cli")
+    params = dict(TINY, num_frames=6)
+    params["input_file"] = str(ws / "cap.hdf5")
+    params["output_fname"] = str(ws / "XAMBG_T")
+    cfg = t_derive(params)
+    write_synth_capture(params["input_file"], cfg, 6,
+                        targets=(Target(40, 20.0, 0.12),), channel_offset=3)
+    cfg_path = ws / "config.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(params, f)
+    jparams = dict(params, output_fname=str(ws / "XAMBG_J"))
+    jcfg_path = ws / "config_jax.yaml"
+    with open(jcfg_path, "w") as f:
+        yaml.safe_dump(jparams, f)
+    return ws, str(cfg_path), str(jcfg_path), cfg
+
+
+def _xambg(path):
+    with h5py.File(path, "r") as f:
+        return np.asarray(f["/xambg"]), int(f["/xambg"].attrs["frames_done"])
+
+
+def test_cli_end_to_end_matches_jax(workspace):
+    """Both CLIs on one capture (3-sample channel offset, two batches of the
+    4-frame batch size): /xambg stacks and npz axes agree."""
+    ws, cfg_path, jcfg_path, cfg = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    from passiveradar_tpu.cli.process import main as j_main
+    assert t_main(["--config", cfg_path, "--device", "cpu"]) == 6
+    j_main(["--config", jcfg_path])
+    got, done_t = _xambg(str(ws / "XAMBG_T.hdf5"))
+    want, done_j = _xambg(str(ws / "XAMBG_J.hdf5"))
+    assert done_t == done_j == 6
+    assert got.shape == (cfg.num_doppler_cells, cfg.num_range_cells + 1, 6)
+    _assert_maps_agree(np.moveaxis(got, 2, 0), np.moveaxis(want, 2, 0))
+    mt = np.load(str(ws / "XAMBG_T.npz"))
+    mj = np.load(str(ws / "XAMBG_J.npz"))
+    for key in ("frame_timestamps", "range_bins", "doppler_bins"):
+        np.testing.assert_array_equal(mt[key], mj[key])
+
+
+def test_cli_strict_frame_parity_matches_jax(workspace):
+    """strict_frame_parity: one frame fewer, a zero right halo on the last
+    frame, the doubled doppler_bins axis — as the JAX CLI writes them."""
+    ws, cfg_path, _, cfg = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    from passiveradar_tpu.cli.process import main as j_main
+    params = yaml.safe_load(open(cfg_path))
+    paths = {}
+    for tag in ("T", "J"):
+        p = dict(params, strict_frame_parity=True,
+                 output_fname=str(ws / f"STRICT_{tag}"))
+        paths[tag] = ws / f"strict_{tag}.yaml"
+        paths[tag].write_text(yaml.safe_dump(p))
+    assert t_main(["--config", str(paths["T"]), "--device", "cpu"]) == 5
+    j_main(["--config", str(paths["J"])])
+    got, _ = _xambg(str(ws / "STRICT_T.hdf5"))
+    want, _ = _xambg(str(ws / "STRICT_J.hdf5"))
+    assert got.shape[2] == 5
+    _assert_maps_agree(np.moveaxis(got, 2, 0), np.moveaxis(want, 2, 0))
+    axes_t = np.load(str(ws / "STRICT_T.npz"))
+    axes_j = np.load(str(ws / "STRICT_J.npz"))
+    np.testing.assert_array_equal(axes_t["doppler_bins"],
+                                  axes_j["doppler_bins"])
+
+
+def test_cli_resume_continues_from_frames_done(workspace):
+    """--resume after a run cut at frames_done = 4 recomputes only the rest
+    and lands on the same stack as the uninterrupted run."""
+    ws, cfg_path, _, cfg = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    path = str(ws / "XAMBG_T.hdf5")
+    if not os.path.exists(path):
+        t_main(["--config", cfg_path, "--device", "cpu"])
+    full, _ = _xambg(path)
+    with h5py.File(path, "a") as f:
+        d = f["/xambg"]
+        d[:, :, 4:] = 0
+        d.attrs["frames_done"] = 4
+    t_main(["--config", cfg_path, "--device", "cpu", "--resume"])
+    resumed, done = _xambg(path)
+    assert done == 6
+    np.testing.assert_array_equal(resumed, full)
+
+
+def test_cli_zarr_capture_and_maps_match_hdf5(workspace):
+    """The same capture as a zarr directory store, with zarr map output
+    (the route for hosts without h5py), gives the HDF5 run's stack."""
+    ws, cfg_path, _, cfg = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    from passiveradar_torch.io import zarr_min
+    params = yaml.safe_load(open(cfg_path))
+    params.update(input_file=str(ws / "cap.zarr"),
+                  output_fname=str(ws / "XAMBG_Z"),
+                  range_doppler_map_ftype="zarr")
+    write_synth_capture(params["input_file"], t_derive(params), 6,
+                        targets=(Target(40, 20.0, 0.12),), channel_offset=3)
+    zcfg = ws / "config_zarr.yaml"
+    zcfg.write_text(yaml.safe_dump(params))
+    path = str(ws / "XAMBG_T.hdf5")
+    if not os.path.exists(path):
+        t_main(["--config", cfg_path, "--device", "cpu"])
+    assert t_main(["--config", str(zcfg), "--device", "cpu"]) == 6
+    got = zarr_min.open(str(ws / "XAMBG_Z.zarr"), mode="r")
+    assert got.attrs["frames_done"] == 6
+    want, _ = _xambg(path)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=1e-6 * np.max(np.abs(want)))
+
+
+def test_cli_rejects_flags_not_ported(workspace):
+    _, cfg_path, _, _ = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    for extra in (["--shard"], ["--dispatch-groups", "2"],
+                  ["--profile", "trace"]):
+        with pytest.raises(SystemExit):
+            t_main(["--config", cfg_path, "--device", "cpu"] + extra)
