@@ -9,9 +9,11 @@ the JAX package; the JAX package stays the reference it is tested against.
 Device policy (``passiveradar_torch._device``): public entry points take
 ``device=None``, meaning the CUDA card, and raise when CUDA is absent;
 ``device="cpu"`` is the only way onto the CPU. Work is complex64 throughout.
-The one hand-written kernel of the main path is the polyphase
-regroup+matmul of the resampler (``ops/resample_kernel.py``,
-``csrc/mix_regroup.cu``).
+Hand-written CUDA kernels: the polyphase regroup+matmul of the resampler
+(``ops/resample_kernel.py``, ``csrc/mix_regroup.cu``) on the main path,
+and the NLMS clutter canceller (``ops/nlms_kernel.py``, ``csrc/nlms.cu``)
+for ``clutter_method`` 'nlms' and 'nlms_pallas'; ``ops/cuda_build.py``
+builds both.
 """
 
 import torch

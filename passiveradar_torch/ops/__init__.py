@@ -1,8 +1,9 @@
 """DSP operations of the port: torch functions over complex64 tensors, plus
-the hand-written CUDA resampler kernel (ops/resample_kernel.py)."""
+the hand-written CUDA kernels of the resampler (ops/resample_kernel.py) and
+of the NLMS canceller (ops/nlms_kernel.py)."""
 
 from passiveradar_torch.ops.caf import fast_xambg
-from passiveradar_torch.ops.clutter import ls_filter_multiple
+from passiveradar_torch.ops.clutter import ls_filter_multiple, nlms_filter
 from passiveradar_torch.ops.fir import (
     design_lowpass,
     fir_decimate,
@@ -12,6 +13,7 @@ from passiveradar_torch.ops.fir import (
 )
 from passiveradar_torch.ops.iir import iir_decimate
 from passiveradar_torch.ops.mixer import block_phase_offsets, frequency_shift
+from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
 from passiveradar_torch.ops.resample_kernel import mix_regroup_matmul
 from passiveradar_torch.ops.xcorr import apply_offset, find_channel_offset, xcorr
 
@@ -29,5 +31,7 @@ __all__ = [
     "find_channel_offset",
     "apply_offset",
     "ls_filter_multiple",
+    "nlms_filter",
+    "nlms_filter_batch",
     "fast_xambg",
 ]

@@ -1,8 +1,10 @@
-"""Multi-Doppler-bin least-squares clutter cancellation (main-path form).
+"""Clutter cancellation: multi-Doppler-bin least squares and NLMS.
 
-Port of the part of the JAX package's ops/clutter.py that the pipeline runs:
-``ls_filter_multiple`` with impl='carry' and solver='levinson' (reference
-clutter_removal.py:162-187, bins (0, 1, -1, 2, -2) Hz, main.py:174). Every
+Port of the parts of the JAX package's ops/clutter.py that the pipeline
+runs: ``ls_filter_multiple`` with impl='carry' and solver='levinson'
+(reference clutter_removal.py:162-187, bins (0, 1, -1, 2, -2) Hz,
+main.py:174), and the ``nlms_filter`` adaptive canceller (reference
+clutter_removal.py:189-249) on the CUDA kernel of ops/nlms_kernel.py. Every
 function takes a leading batch of frames: the JAX package's vmap over
 frames becomes the leading axis, and the ``lax.scan`` over Doppler bins a Python loop.
 
@@ -20,6 +22,7 @@ import torch
 
 from passiveradar_torch.config import nextpow2
 from passiveradar_torch.ops.fft import fft_auto, ifft_auto
+from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
 from passiveradar_torch.ops.zoomfft import partial_ifft, sparse_fft
 
 
@@ -249,3 +252,27 @@ def ls_filter_multiple(ref: torch.Tensor, srv: torch.Tensor, filter_len: int,
     out = ifft_auto(f_cur)
     out[:, :m] += corr
     return out[0] if single else out
+
+
+def nlms_filter(ref: torch.Tensor, srv: torch.Tensor, filter_len: int,
+                mu: float, peek: int = 10, initial_taps=None,
+                return_filter: bool = False):
+    """Normalised LMS clutter canceller (reference clutter_removal.py:189-249)
+    with the signature and semantics of the JAX ``nlms_filter`` scan.
+
+    ref/srv: (n,) complex64. At step k the tap input is ref[k+1 : k+1+L+peek]
+    (flipped in the reference's orientation), the error e = srv[k+L] − wᴴu
+    becomes output sample L+k, and w ← w + mu·u·conj(e)/(uᴴu) with the plain
+    division: an all-zero window makes the taps and every later output NaN,
+    as in the scan. ``initial_taps`` and the returned taps are in the
+    reference orientation; with ``initial_taps`` the filter length is its
+    length less ``peek``. On a CUDA tensor it launches the NLMS kernel; on
+    the CPU it runs the kernel's plain version.
+    """
+    if ref.dim() != 1:
+        raise ValueError(f"nlms_filter takes 1-D ref and srv, got "
+                         f"{tuple(ref.shape)}; nlms_filter_batch takes a "
+                         "batch")
+    return nlms_filter_batch(ref, srv, filter_len, mu, peek=peek,
+                             return_filter=return_filter,
+                             initial_taps=initial_taps, zero_window="nan")

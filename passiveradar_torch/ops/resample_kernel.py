@@ -11,7 +11,8 @@ complex tap bank B̃ (``bank`` = [Re B̃; Im B̃], shape (2·up, W), from
 ``ops/fir.py:_mix_resample_static``), returned as (o_re, o_im), each
 (F, groups, up) float32.
 
-Kernel (``csrc/mix_regroup.cu``, CUDA C++ for sm_90a, bound with ctypes):
+Kernel (``csrc/mix_regroup.cu``, CUDA C++ for sm_90a, built by
+``ops/cuda_build.py`` and bound with ctypes):
 one CTA per (frame, tile of 64 consecutive groups). The CTA stages its
 contiguous input span [g0·down − pad_left, (g0+64−1)·down + W − pad_left)
 straight from the interleaved (F, n, 2) tensor into shared memory with
@@ -42,59 +43,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "mix_regroup.cu")
-_BUILD_DIR = os.path.join(_CSRC, "build")
-_LIBRARY = os.path.join(_BUILD_DIR, "libmix_regroup.so")
+from passiveradar_torch.ops import cuda_build
+
 MAX_UP = 20          # derive_config limits the resampling denominator to 20
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "csrc/mix_regroup.cu")
-
-
-def build_library(force: bool = False) -> dict:
-    """Compile csrc/mix_regroup.cu for sm_90a into csrc/build/.
-
-    Returns {"path", "seconds", "log"} (``log`` holds ptxas' register and
-    shared-memory report). Raises RuntimeError when nvcc fails.
-    """
-    if (not force and os.path.exists(_LIBRARY)
-            and os.path.getmtime(_LIBRARY) >= os.path.getmtime(_SOURCE)):
-        return dict(path=_LIBRARY, seconds=0.0, log="(up to date)")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SOURCE]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, _LIBRARY)
-    return dict(path=_LIBRARY, seconds=dt, log=res.stderr)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library()["path"])
+    lib = cuda_build.load("mix_regroup")
     lib.mix_regroup_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -5,7 +5,8 @@ Port of the JAX package's pipeline.py for one device. Per batch of frames:
     raw per-frame chunks (int16 / float32 IQ pairs)
       → fused down-conversion + polyphase resample   (main.py:122-166;
         the CUDA kernel of ops/resample_kernel.py does the bulk)
-      → multi-Doppler-bin LS clutter removal          (main.py:168-176)
+      → clutter removal: multi-Doppler-bin LS         (main.py:168-176),
+        or NLMS on the CUDA kernel of ops/nlms_kernel.py
       → 50% CPI-overlap halo                          (main.py:178-181)
       → windowed fast CAF → range-Doppler frames      (main.py:183-194)
 
@@ -30,6 +31,7 @@ from passiveradar_torch.ops.caf import fast_xambg, resolve_window
 from passiveradar_torch.ops.clutter import ls_filter_multiple
 from passiveradar_torch.ops.fir import mix_resample_poly_batch
 from passiveradar_torch.ops.mixer import block_phase_offsets
+from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
 from passiveradar_torch.ops.util import deinterleave_batch
 from passiveradar_torch.parallel.halo import overlap_frames
 
@@ -67,12 +69,25 @@ def _preprocess_impl(raw: torch.Tensor, phases: torch.Tensor,
 
 def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
                   cfg: RadarConfig) -> torch.Tensor:
-    """Clutter cancellation over a frame batch ('ls_multiple' or 'none')."""
-    if cfg.clutter_method == "none":
+    """Clutter cancellation over a frame batch.
+
+    cfg.clutter_method selects the canceller: 'ls_multiple' (the reference
+    pipeline's sequential multi-Doppler-bin Toeplitz LS, main.py:168-176),
+    'nlms' (NLMS with the JAX scan's plain division: an all-zero window,
+    such as a zero margin frame, gives a NaN frame), 'nlms_pallas' (NLMS
+    with the JAX Pallas kernel's guard: an all-zero window leaves the taps
+    unchanged), or 'none'. Both NLMS methods run the whole batch in one
+    launch of the NLMS kernel.
+    """
+    method = cfg.clutter_method
+    if method == "none":
         return srv
-    if cfg.clutter_method != "ls_multiple":
-        raise NotImplementedError(
-            f"clutter_method {cfg.clutter_method!r} is not ported yet")
+    if method in ("nlms", "nlms_pallas"):
+        return nlms_filter_batch(
+            ref, srv, cfg.num_range_cells, cfg.nlms_mu,
+            zero_window="nan" if method == "nlms" else "zero")
+    if method != "ls_multiple":
+        raise ValueError(f"unknown clutter_method {method!r}")
     return ls_filter_multiple(ref, srv, cfg.num_range_cells,
                               cfg.IF_sample_rate, cfg.clutter_doppler_bins,
                               impl=cfg.clutter_impl, solver=cfg.clutter_solver)

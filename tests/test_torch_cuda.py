@@ -1,5 +1,5 @@
-"""Card-only checks of the port: the CUDA kernel against its plain version,
-and the whole chain on the card against the CPU.
+"""Card-only checks of the port: the CUDA kernels against their plain
+versions, and the whole chain on the card against the CPU.
 
 Marked ``cuda``; each test skips when no CUDA card is present (decided in
 the fixture, at run time). On a machine with the card:
@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 from passiveradar_torch.config import derive_config  # noqa: E402
 from passiveradar_torch.io.synthetic import (  # noqa: E402
     Target, synth_capture_arrays)
+from passiveradar_torch.ops import nlms_kernel as nk  # noqa: E402
 from passiveradar_torch.ops import resample_kernel as rk  # noqa: E402
 from passiveradar_torch.pipeline import frame_phases, process_frames  # noqa: E402
 
@@ -58,6 +59,73 @@ def test_mix_regroup_kernel_rejects_cpu_bank(cuda):
         rk.mix_regroup_matmul(x, torch.zeros((9, 2, 2)), 3, 30, 1)
 
 
+def _nlms_inputs(cuda, frames, n, m, seed):
+    """Clutter-like inputs on the card; frame 1 holds a zero run longer
+    than m in ref, so it has all-zero windows."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ref = torch.randn((frames, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    ref[1, n // 3:n // 3 + m + 40] = 0
+    srv = 0.5 * torch.roll(ref, 3, dims=1) + 0.1 * torch.randn(
+        (frames, n), dtype=torch.complex64, generator=gen, device=cuda)
+    return ref, srv
+
+
+def _assert_nlms_agree(got, want):
+    """Equal NaN masks; the finite parts within 1e-5 of the peak."""
+    mask = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), mask)
+    g, w = got[~mask], want[~mask]
+    assert torch.isfinite(g).all()
+    assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flen,peek,zero_window", [
+    (175, 10, "zero"), (175, 10, "nan"), (23, 10, "zero"), (23, 10, "nan"),
+    (502, 10, "zero"), (1, 0, "zero")])
+def test_nlms_kernel_matches_plain(cuda, flen, peek, zero_window):
+    """Kernel vs its plain version across tap counts (template
+    instantiations 6, 2, 16 and 1), both zero-window semantics, with one
+    frame holding all-zero windows."""
+    ref, srv = _nlms_inputs(cuda, 3, 3000, flen + peek, flen)
+    before = nk.nlms_filter_batch.launches
+    got, gtaps = nk.nlms_filter_batch(ref, srv, flen, 0.05, peek=peek,
+                                      return_filter=True,
+                                      zero_window=zero_window)
+    assert nk.nlms_filter_batch.launches == before + 1
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, flen, 0.05, peek=peek,
+                                             return_filter=True,
+                                             zero_window=zero_window)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+    assert torch.isnan(got[1]).any() == (zero_window == "nan")
+    assert not torch.isnan(got[[0, 2]]).any()
+
+
+@pytest.mark.cuda
+def test_nlms_kernel_warm_start_matches_plain(cuda):
+    ref, srv = _nlms_inputs(cuda, 2, 2000, 40, 7)
+    _, taps = nk.nlms_filter_batch(ref[:, :900], srv[:, :900], 30, 0.1,
+                                   return_filter=True)
+    got, gtaps = nk.nlms_filter_batch(ref, srv, 0, 0.1, initial_taps=taps,
+                                      return_filter=True)
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, 0, 0.1,
+                                             initial_taps=taps,
+                                             return_filter=True)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+
+
+@pytest.mark.cuda
+def test_nlms_kernel_rejects_too_many_taps(cuda):
+    x = torch.zeros((1, 2000), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="at most 512"):
+        nk.nlms_filter_batch(x, x, 503, 0.05)
+
+
 @pytest.mark.cuda
 def test_process_frames_card_matches_cpu(cuda):
     cfg = derive_config(dict(input_sample_rate=49152,
@@ -77,3 +145,38 @@ def test_process_frames_card_matches_cpu(cuda):
     assert np.max(np.abs(got - want)) < 1e-4 * np.max(np.abs(want))
     for f in range(nfr):
         assert np.argmax(np.abs(got[f])) == np.argmax(np.abs(want[f]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nlms", "nlms_pallas"])
+def test_process_frames_nlms_card_matches_cpu(cuda, method):
+    """Both NLMS methods, card vs CPU, with zero frames at the batch edges:
+    equal NaN masks under 'nlms' (frames 0, 1, 4, 5), all finite under
+    'nlms_pallas'; finite frames within 1e-4 of the map peak, argmax
+    equal."""
+    cfg = derive_config(dict(input_sample_rate=49152,
+                             input_center_freq=1_000_000,
+                             channel_freq=990_170, channel_bandwidth=12800,
+                             cpi_seconds_nominal=1.0,
+                             max_doppler_nominal=128.0,
+                             max_range_nominal=400.0,
+                             clutter_method=method))
+    nfr = 6
+    ref, srv = synth_capture_arrays(cfg, nfr, targets=(Target(40, 20.0, 0.1),))
+    length = cfg.input_chunk_length
+    ref = ref[:nfr * length].reshape(nfr, length)
+    srv = srv[:nfr * length].reshape(nfr, length)
+    ref[[0, -1]] = 0
+    srv[[0, -1]] = 0
+    ph = frame_phases(cfg, list(range(nfr)))
+    before = nk.nlms_filter_batch.launches
+    got = process_frames(ref, srv, ph, cfg).cpu().numpy()
+    assert nk.nlms_filter_batch.launches == before + 1
+    want = process_frames(ref, srv, ph, cfg, device="cpu").numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    finite = [f for f in range(nfr) if np.isfinite(want[f]).all()]
+    assert finite == ([2, 3] if method == "nlms" else list(range(nfr)))
+    g, w = got[finite], want[finite]
+    assert np.max(np.abs(g - w)) < 1e-4 * np.max(np.abs(w))
+    for f in range(len(finite)):
+        assert np.argmax(np.abs(g[f])) == np.argmax(np.abs(w[f]))

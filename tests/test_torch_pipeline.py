@@ -61,6 +61,14 @@ def _assert_maps_agree(got, want):
                                     want[f].shape)), f
 
 
+def _assert_maps_agree_nan(got, want):
+    """Equal NaN masks; the frames that are finite agree as above."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    finite = [f for f in range(want.shape[0]) if np.isfinite(want[f]).all()]
+    assert finite
+    _assert_maps_agree(got[finite], want[finite])
+
+
 def test_config_derivation_equal():
     for params in (TINY, dict(TINY, overlap_cpi=False),
                    dict(TINY, input_sample_rate=2_400_000,
@@ -239,3 +247,69 @@ def test_cli_rejects_flags_not_ported(workspace):
                   ["--profile", "trace"]):
         with pytest.raises(SystemExit):
             t_main(["--config", cfg_path, "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("method", ["nlms", "nlms_pallas"])
+def test_process_frames_nlms_matches_jax(method):
+    """Both NLMS methods against the JAX pipeline, with zero frames at both
+    edges of the batch (as run_capture's margins give). Under 'nlms' the
+    JAX scan turns a zero frame into NaN and the CPI-overlap halo carries it
+    to its neighbours: frames 0, 1, 4 and 5 are NaN maps, 2 and 3 finite,
+    and the port gives the same mask. Under 'nlms_pallas' all are finite."""
+    params = dict(TINY, clutter_method=method)
+    cfg_j, cfg_t = j_derive(params), t_derive(params)
+    n_frames = 6
+    ref, srv = synth_capture_arrays(
+        cfg_j, n_frames, targets=(JTarget(40, 20.0, 0.1),), seed=1)
+    L = cfg_j.input_chunk_length
+    ref = ref[:n_frames * L].reshape(n_frames, L)
+    srv = srv[:n_frames * L].reshape(n_frames, L)
+    ref[[0, -1]] = 0
+    srv[[0, -1]] = 0
+    phases = j_frame_phases(cfg_j, list(range(n_frames)))
+    want = np.asarray(j_process_frames(jnp.asarray(ref), jnp.asarray(srv),
+                                       jnp.asarray(phases), cfg_j))
+    got = tp.process_frames(ref, srv, phases, cfg_t, device="cpu").numpy()
+    if method == "nlms":
+        nan_frames = [f for f in range(n_frames) if np.isnan(want[f]).any()]
+        assert nan_frames == [0, 1, 4, 5]
+        _assert_maps_agree_nan(got, want)
+    else:
+        _assert_maps_agree(got, want)
+
+
+@pytest.mark.parametrize("method", ["nlms", "nlms_pallas"])
+def test_cli_nlms_matches_jax(workspace, method):
+    """Both CLIs with an NLMS clutter method on one capture. run_capture
+    feeds a zero frame before the capture's first frame, so under 'nlms'
+    both write a NaN map for frame 0 (the capture holds a frame after the
+    last one written, which is read as the right margin)."""
+    ws, cfg_path, _, cfg = workspace
+    from passiveradar_torch.cli.process import main as t_main
+    from passiveradar_tpu.cli.process import main as j_main
+    params = yaml.safe_load(open(cfg_path))
+    paths = {}
+    for tag in ("T", "J"):
+        p = dict(params, clutter_method=method,
+                 output_fname=str(ws / f"{method}_{tag}"))
+        paths[tag] = ws / f"{method}_{tag}.yaml"
+        paths[tag].write_text(yaml.safe_dump(p))
+    assert t_main(["--config", str(paths["T"]), "--device", "cpu"]) == 6
+    j_main(["--config", str(paths["J"])])
+    got, done_t = _xambg(str(ws / f"{method}_T.hdf5"))
+    want, done_j = _xambg(str(ws / f"{method}_J.hdf5"))
+    assert done_t == done_j == 6
+    got, want = np.moveaxis(got, 2, 0), np.moveaxis(want, 2, 0)
+    if method == "nlms":
+        nan_frames = [f for f in range(6) if np.isnan(want[f]).any()]
+        assert nan_frames == [0]
+        _assert_maps_agree_nan(got, want)
+    else:
+        _assert_maps_agree(got, want)
+
+
+def test_clutter_rejects_unknown_method():
+    cfg = t_derive(dict(TINY, clutter_method="lms"))
+    x = torch.zeros((1, 100), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="unknown clutter_method"):
+        tp._clutter_impl(x, x, cfg)
