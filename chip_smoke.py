@@ -11,9 +11,11 @@ Phases, one JSON line each; any failure exits non-zero:
 3. kernels: every CUDA kernel against its plain torch version on the card,
    at the FM shapes and at ragged small ones (the NLMS kernel in both
    zero-window semantics, with a zero run, a ragged tap count and a warm
-   start), with times (kernel, plain version, one library call where there
-   is one) and the reckoned bound; the NLMS kernel also at the shape of
-   bench_nlms.py; then the whole chain on the card against the CPU at a
+   start; the fused FFT at every supported length, forward and inverse,
+   also against cuFFT, and on a strided view), with times (kernel, plain
+   version, one library call where there is one) and the reckoned bound;
+   the NLMS kernel also at the shape of bench_nlms.py and the FFT at that of
+   bench_fft_fused.py; then the whole chain on the card against the CPU at a
    small geometry, for the LS and both NLMS clutter methods;
 4. main path: an FM broadcast capture (2.4 MS/s, 200 kHz channel, 2 s CPI,
    16 frames, two targets) through ``passiveradar_torch.cli.process`` on
@@ -21,17 +23,27 @@ Phases, one JSON line each; any failure exits non-zero:
    ``clutter_method: nlms_pallas`` and ``nlms``, each with the kernel
    launch counts of its run (counts set to 0 just before it) and the
    ground-truth peaks of the range-Doppler maps; then one FM batch of 3
-   frames with ``nlms_pallas``, card against CPU, at full width;
-5. steady state, for the LS and the ``nlms_pallas`` canceller:
+   frames with ``nlms_pallas``, card against CPU, at full width; then one
+   FM batch with the LS canceller's full-length FFTs on the fused kernel
+   (``PASSIVERADAR_PALLAS_FFT=1``) against the cuFFT route;
+5. streaming: the same capture through ``passiveradar_torch.cli.stream``
+   (CAF, CFAR and the multitarget tracker per push) with the LS canceller
+   under ``PASSIVERADAR_PALLAS_FFT=1`` and with ``nlms_pallas``, in full
+   and summary detail, with the launch counts of each run, its push
+   latency, and a confirmed track at the strong target; each streamed CAF
+   against ``process_frames`` over the same frames;
+6. steady state, for the LS canceller and for ``nlms_pallas``:
    ``process_frames`` on one device-resident FM batch, per stage, with peak
    device memory; then one batch under torch.profiler (kernel launches,
-   device busy and idle share, the heaviest kernels).
+   device busy and idle share, the heaviest kernels); then the LS batch on
+   cuFFT and on the fused FFT in turns, and one profiled fused batch.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -81,6 +93,12 @@ STEADY_RUNS = 10
 NLMS_TOL = 1e-5
 NLMS_CHECK_N = 16384     # length of the kernel-vs-plain checks
 NLMS_BENCH = dict(B=128, N=262144, filter_len=175, peek=10)  # bench_nlms.py
+FFT_BENCH = (8, 262144)  # bench_fft_fused.py
+STREAM_TOL = 1e-3        # streamed CAF vs process_frames, over the map peak
+FUSED_FFT_ENV = "PASSIVERADAR_PALLAS_FFT"
+# LS maps on the fused FFT vs the float64-FFT route, over the cuFFT route's
+# own distance from it (phase_ls_fused)
+FUSED_VS_F64 = 1.5
 
 
 def emit(obj):
@@ -109,16 +127,31 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: _ZN<n><namespace><n><name>...,
+    with the template argument of ILi<k>E as <k>."""
+    import re
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", mangled[i:])
+    if not m:
+        return mangled
+    i += m.end()
+    name = mangled[i:i + int(m.group(1))]
+    t = re.match(r"ILi(\d+)E", mangled[i + len(name):])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
 def ptxas_summary(log: str) -> list:
     """ptxas -v output → one line per kernel: registers and spills."""
     import re
     out, name, spill = [], None, ""
     for ln in log.splitlines():
-        # mangled names are length-prefixed: ...11nlms_kernelILi6E...
-        m = re.search(r"Compiling entry function .*?\d([a-z_]+_kernel)ILi(\d+)E",
-                      ln)
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = kernel_name(m.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -356,7 +389,7 @@ def phase_nlms_kernels(torch, dev):
     bench_flops = 16.0 * bm * (bn - bm) * bb
     del ref, srv
 
-    row = dict(name="nlms_filter_batch", route="cuda",
+    row = dict(name="nlms_filter_pallas", route="cuda",
                source="passiveradar_torch/csrc/nlms.cu",
                replaces="passiveradar_tpu/ops/nlms_pallas.py:157",
                launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -375,6 +408,402 @@ def phase_nlms_kernels(torch, dev):
                                     gflops_per_s=bench_flops / bench_ms
                                     / 1e6)))
     return row
+
+
+def fft_bound(b: int, n: int):
+    """(bound ms, bound_by, bytes, flops) of b transforms of n points: each
+    complex64 sample read once and written once; 5·n·log2(n) FLOP each."""
+    nbytes = 2.0 * b * n * 8
+    flops = 5.0 * n * math.log2(n) * b
+    return flops_bound(nbytes, flops) + (nbytes, flops)
+
+
+def phase_fft_kernels(torch, dev):
+    """The fused FFT against its plain version and cuFFT at every supported
+    length, forward and inverse (test_mxufft.py's tolerances), on a strided
+    view, and timed at the FM clutter shapes and bench_fft_fused.py's."""
+    from passiveradar_torch.ops import fft_kernel as fk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    checks = []
+    for n in sorted(fk._SPLITS):
+        x = torch.randn((3, n), dtype=torch.complex64, generator=gen,
+                        device=dev)
+        for inverse in (False, True):
+            got = fk.fft_fused(x, inverse=inverse)
+            plain = fk.fft_fused_reference(x, inverse=inverse)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            torch.cuda.synchronize()
+            tol = 2e-5 if inverse else 2e-5 * math.sqrt(n)
+            e_plain = (got - plain).abs().max().item()
+            e_lib = (got - lib).abs().max().item()
+            checks.append(dict(n=n, inverse=inverse, err_plain=e_plain,
+                               err_cufft=e_lib, tol=tol))
+            if not (e_plain < tol and e_lib < tol):
+                raise AssertionError(f"fft_fused disagrees at n={n}, "
+                                     f"inverse={inverse}: {checks[-1]}")
+
+    n = 262144
+    f = BATCH + 2
+    shapes = dict(forward=((f, 3, n), False), inverse=((f, n), True),
+                  bench=(FFT_BENCH, False))
+    timed = {}
+    for key, (shape, inverse) in shapes.items():
+        x = torch.randn(shape, dtype=torch.complex64, generator=gen,
+                        device=dev)
+        lib_fn = torch.fft.ifft if inverse else torch.fft.fft
+        got = fk.fft_fused(x, inverse=inverse)
+        plain = fk.fft_fused_reference(x, inverse=inverse)
+        exact = lib_fn(x.to(torch.complex128))
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        # both float32 FFTs against the complex128 transform
+        err_f64 = dict(kernel=(got - exact).abs().max().item(),
+                       cufft=(lib_fn(x) - exact).abs().max().item())
+        tol = 2e-5 if inverse else 2e-5 * math.sqrt(n)
+        if not err < tol:
+            raise AssertionError(f"fft_fused disagrees at {shape}: {err}")
+        del got, plain, exact
+        b = x.numel() // n
+        bound_ms, bound_by, nbytes, flops = fft_bound(b, n)
+        ms = cuda_ms(torch, lambda: fk.fft_fused(x, inverse=inverse), 20)
+        plain_ms = cuda_ms(torch, lambda: fk.fft_fused_reference(
+            x, inverse=inverse), 5)
+        lib_ms = cuda_ms(torch, lambda: lib_fn(x), 20)
+        timed[key] = dict(shape=list(shape), inverse=inverse,
+                          max_abs_err=err, err_vs_complex128=err_f64,
+                          kernel_ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, bytes=nbytes, flops=flops,
+                          bound_share=bound_ms / ms,
+                          achieved_gbytes_per_s=nbytes / ms / 1e6)
+        del x
+
+    # a strided view: ls_filter_multiple hands over f_extra[:, 0]
+    x = torch.randn((f, 3, n), dtype=torch.complex64, generator=gen,
+                    device=dev)
+    got = fk.fft_fused(x[:, 1])
+    strided_err = (got - torch.fft.fft(x[:, 1])).abs().max().item()
+    torch.cuda.synchronize()
+    if not strided_err < 2e-5 * math.sqrt(n):
+        raise AssertionError(f"fft_fused on a strided view: {strided_err}")
+    del x, got
+
+    fwd = timed["forward"]
+    emit(dict(phase="kernels_fft", checks=checks,
+              strided_view_err_cufft=strided_err, **timed))
+    return dict(name="fft_fused", route="cuda",
+                source="passiveradar_torch/csrc/fft_fused.cu",
+                replaces="passiveradar_tpu/ops/fft_pallas.py:116",
+                launches=None, max_abs_err=fwd["max_abs_err"],
+                ms=fwd["kernel_ms"], plain_ms=fwd["plain_ms"],
+                bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+                library_ms=fwd["library_ms"])
+
+
+class fused_fft:
+    """Context: the LS canceller's full-length FFTs on the fused kernel."""
+
+    def __enter__(self):
+        os.environ[FUSED_FFT_ENV] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop(FUSED_FFT_ENV, None)
+
+
+class float64_fft:
+    """Context: the transforms that the fused route takes, in complex128
+    through cuFFT and rounded to complex64 — the reference both routes are
+    held against."""
+
+    def __enter__(self):
+        import torch
+        from passiveradar_torch.ops import fft_kernel as fk
+
+        def f64(x, inverse=False):
+            fn = torch.fft.ifft if inverse else torch.fft.fft
+            return fn(x.to(torch.complex128)).to(torch.complex64)
+
+        self.fk, self.kernel = fk, fk.fft_fused
+        fk.fft_fused = f64
+        os.environ[FUSED_FFT_ENV] = "1"
+
+    def __exit__(self, *exc):
+        self.fk.fft_fused = self.kernel
+        os.environ.pop(FUSED_FFT_ENV, None)
+
+
+def phase_ls_fused(torch, dev, cfg):
+    """One FM batch (8 + 2 frames) with the LS canceller, its two
+    full-length FFTs on the fused kernel, against the cuFFT route and
+    against the same chain with those FFTs in float64. The LS solve
+    amplifies any change to them: the cuFFT route is itself ~1e-4 of the
+    peak from the float64 one (PERF.md, Findings), so the fused route must have
+    every frame's argmax equal to the cuFFT route's and be no farther from
+    the float64 route than FUSED_VS_F64 times the cuFFT route is."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops import fft_kernel as fk
+
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    f = BATCH + 2
+    ref_np, srv_np = reader.read_pair_frames(0, f)
+    reader.close()
+    ref = torch.from_numpy(ref_np).to(dev)
+    srv = torch.from_numpy(srv_np).to(dev)
+    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+
+    def maps():
+        return pl._process_frames_impl(ref, srv, ph, cfg).cpu().numpy()
+
+    cufft = maps()
+    with float64_fft():
+        f64 = maps()
+    with fused_fft():
+        before = fk.fft_fused.launches
+        got = maps()
+        launches = fk.fft_fused.launches - before
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    same = all(np.argmax(np.abs(got[i])) == np.argmax(np.abs(cufft[i]))
+               for i in range(f))
+    out = dict(rel_fused_vs_cufft=rel(got, cufft),
+               rel_fused_vs_f64=rel(got, f64),
+               rel_cufft_vs_f64=rel(cufft, f64))
+    emit(dict(phase="ls_fused_fft", frames=f, fft_fused_launches=launches,
+              argmax_equal=same, finite=bool(np.all(np.isfinite(got))),
+              **out))
+    if not (same and launches == 2 and np.all(np.isfinite(got))
+            and out["rel_fused_vs_f64"]
+            <= FUSED_VS_F64 * out["rel_cufft_vs_f64"]):
+        raise AssertionError(f"LS on the fused FFT: {out}, argmax {same}, "
+                             f"{launches} launches")
+
+
+def phase_ls_route_ab(torch, dev, cfg):
+    """The LS steady-state batch on the cuFFT route and on the fused-FFT
+    route in turns (cuFFT, fused, fused, cuFFT, five times): batch and
+    clutter-stage ms by CUDA events, the host time to enqueue one forward
+    FFT of the clutter's shape on each route, and one profiled batch on
+    the fused route."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops import fft_kernel as fk
+
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    f = BATCH + 2
+    ref_np, srv_np = reader.read_pair_frames(0, f)
+    reader.close()
+    ref = torch.from_numpy(ref_np).to(dev)
+    srv = torch.from_numpy(srv_np).to(dev)
+    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+
+    def run():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        r = pl._preprocess_impl(ref, ph, cfg)
+        s = pl._preprocess_impl(srv, ph, cfg)
+        ev[1].record()
+        pl._caf_batch_impl(r, pl._clutter_impl(r, s, cfg), cfg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[2]), ev[1].elapsed_time(ev[2])
+
+    for _ in range(2):
+        run()
+        with fused_fft():
+            run()
+    times = dict(cufft=dict(total=[], clutter_caf=[]),
+                 fused=dict(total=[], clutter_caf=[]))
+    for _ in range(5):
+        for route in ("cufft", "fused", "fused", "cufft"):
+            if route == "fused":
+                with fused_fft():
+                    t, c = run()
+            else:
+                t, c = run()
+            times[route]["total"].append(t)
+            times[route]["clutter_caf"].append(c)
+
+    x = torch.randn((f, 3, cfg.output_chunk_length), dtype=torch.complex64,
+                    device=dev)
+    enqueue = {}
+    for route, fn in (("cufft", lambda: torch.fft.fft(x)),
+                      ("fused", lambda: fk.fft_fused(x))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        enqueue[route] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+    del x
+    emit(dict(phase="ls_route_ab", buffer_frames=f, runs_each=10,
+              order="cufft, fused, fused, cufft; x5",
+              median_ms={r: {k: float(np.median(v)) for k, v in t.items()}
+                         for r, t in times.items()},
+              runs_ms=times, enqueue_ms_per_forward_fft=enqueue))
+    with fused_fft():
+        profile_batch(torch, pl, ref, srv, ph, cfg)
+
+
+def strong_target(cfg):
+    """The strong target's map cell (432, 153) on the tracker's axes: range
+    from get_measurements' range points, Doppler from its Doppler points
+    after the fliplr of the map's Doppler rows."""
+    import torch
+    from passiveradar_torch.detect.measurements import _linspace
+    nf, nr = cfg.num_doppler_cells, cfg.num_range_cells + 1
+    d = torch.tensor(cfg.max_doppler_actual, dtype=torch.float32)
+    r = torch.tensor(cfg.max_range_actual, dtype=torch.float32)
+    rpts = _linspace(r, torch.zeros(()), nr)
+    dpts = _linspace(-d, d, nf)
+    return float(rpts[153]), float(dpts[nf - 1 - 432])
+
+
+def push_breakdown(torch, sp, ref, srv, method):
+    """Where one push's time goes, on the processor's state after a stream:
+    preprocess + clutter of one frame, its CAF, the CFAR and the tracker
+    step, each timed alone by CUDA events (host launch gaps included), and
+    the tracker step's kernel launches under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from passiveradar_torch.detect.trackers import multitarget_step
+    from passiveradar_torch.ops.caf import fast_xambg
+    from passiveradar_torch.ops.cfar import cfar_2d
+
+    cfg = sp.cfg
+    h = cfg.window_overlap
+    cur = sp._clean(ref, srv)
+    r, s = cur[0][0], cur[1][0]
+    z = torch.zeros(h, dtype=r.dtype, device=r.device)
+    r_in, s_in = torch.cat([z, r, z]), torch.cat([z, s, z])
+    caf = fast_xambg(r_in, s_in, cfg.num_range_cells, cfg.num_doppler_cells,
+                     window=sp._window)
+    mag = caf.abs()
+    cf = cfar_2d(mag, *sp.cfar_kernel)
+
+    def track():
+        return multitarget_step(sp._tracks, cf, sp._extent, sp.n_tracks,
+                                cfg.candidate_budget)
+
+    ms = dict(
+        clean=cuda_ms(torch, lambda: sp._clean(ref, srv), 5, warmup=1),
+        caf=cuda_ms(torch, lambda: fast_xambg(
+            r_in, s_in, cfg.num_range_cells, cfg.num_doppler_cells,
+            window=sp._window), 5, warmup=1),
+        cfar=cuda_ms(torch, lambda: cfar_2d(mag, *sp.cfar_kernel), 5,
+                     warmup=1),
+        tracker=cuda_ms(torch, track, 5, warmup=1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        track()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    emit(dict(phase="stream_breakdown", clutter_method=method,
+              n_tracks=sp.n_tracks, stage_ms=ms,
+              tracker_kernel_launches=launches))
+
+
+def phase_stream(torch, dev, params):
+    """cli.stream on the FM capture: LS under the fused-FFT opt-in and
+    nlms_pallas, full and summary detail, with each run's launch counts
+    (set to 0 just before it) and push latency; a confirmed track within the
+    confirmed gate (4 km, 20 Hz) of the strong target; then every streamed
+    CAF (device-resident pushes) against process_frames over the same
+    frames. Returns the launch counts of the full-detail runs."""
+    import yaml
+
+    from passiveradar_torch.cli.stream import main as stream_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops import fft_kernel as fk
+    from passiveradar_torch.ops import nlms_kernel as nk
+    from passiveradar_torch.ops import resample_kernel as rk
+    from passiveradar_torch.pipeline import frame_phases, process_frames
+    from passiveradar_torch.streaming import StreamingProcessor
+
+    counters = dict(mix_regroup_matmul=rk.mix_regroup_matmul,
+                    nlms_filter_pallas=nk.nlms_filter_batch,
+                    fft_fused=fk.fft_fused)
+    runs = {}
+    for method in ("ls_multiple", "nlms_pallas"):
+        p = dict(params, clutter_method=method)
+        cfg = derive_config(p)
+        cfg_path = os.path.join(WORK, f"stream_{method}.yaml")
+        with open(cfg_path, "w") as fh:
+            yaml.safe_dump(p, fh)
+        target = strong_target(cfg)
+        fused = method == "ls_multiple"
+        route = fused_fft if fused else contextlib.nullcontext
+        for detail in ("full", "summary"):
+            for c in counters.values():
+                c.launches = 0
+            with route():
+                res = stream_main(["--config", cfg_path, "--detail", detail])
+                torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            table = res["tracks"]
+            status = np.asarray(table["status"])
+            est = np.asarray(table["estimate"])
+            hits = [int(i) for i in np.where(status == 2)[0]
+                    if abs(est[i, 0] - target[0]) < 4
+                    and abs(est[i, 1] - target[1]) < 20]
+            lat = np.asarray(res["push_ms"])
+            emit(dict(phase="stream", clutter_method=method,
+                      fused_fft=fused, detail=detail, frames=res["frames"],
+                      launches=launches, wall_s=res["seconds"],
+                      push_ms_median=float(np.median(lat)),
+                      push_ms_max=float(lat.max()),
+                      push_ms_steady_median=float(np.median(lat[1:-1])),
+                      push_ms=lat.tolist(),
+                      realtime=bool(lat.max() < 1e3 * cfg.frame_interval),
+                      strong_target_km_hz=target,
+                      confirmed=[[int(i), float(est[i, 0]), float(est[i, 1])]
+                                 for i in np.where(status == 2)[0]],
+                      confirmed_at_strong_target=hits))
+            want = dict(mix_regroup_matmul=2 * FRAMES,
+                        nlms_filter_pallas=0 if fused else FRAMES,
+                        fft_fused=2 * FRAMES if fused else 0)
+            if res["frames"] != FRAMES or launches != want:
+                raise AssertionError(f"stream {method}/{detail}: frames "
+                                     f"{res['frames']}, launches {launches}")
+            if not hits:
+                raise AssertionError(f"stream {method}/{detail}: no "
+                                     f"confirmed track at {target}")
+            if detail == "full":
+                runs[method] = launches
+
+        # every streamed CAF against the batch chain over the same frames
+        reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+        ref_c, srv_c = reader.read_iq_frames(0, FRAMES)
+        ref_p, srv_p = reader.read_pair_frames(0, FRAMES)
+        reader.close()
+        with route():
+            batch = process_frames(ref_p, srv_p,
+                                   frame_phases(cfg, list(range(FRAMES))),
+                                   cfg, device=dev).abs().cpu().numpy()
+            sp = StreamingProcessor(cfg, device=dev)
+            rc = torch.from_numpy(ref_c).to(dev)
+            sc = torch.from_numpy(srv_c).to(dev)
+            streamed = [sp.push(rc[i], sc[i]) for i in range(FRAMES)]
+            streamed = [r for r in streamed if r is not None] + [sp.flush()]
+        errs = [float(np.max(np.abs(np.abs(r.caf) - batch[r.frame_index]))
+                      / np.max(batch[r.frame_index])) for r in streamed]
+        with route():
+            push_breakdown(torch, sp, rc[0], sc[0], method)
+        emit(dict(phase="stream_vs_process_frames", clutter_method=method,
+                  fused_fft=fused, frames=len(streamed),
+                  max_rel_err=max(errs), tol=STREAM_TOL))
+        if [r.frame_index for r in streamed] != list(range(FRAMES)) or \
+                not max(errs) < STREAM_TOL:
+            raise AssertionError(f"streamed CAFs vs process_frames "
+                                 f"({method}): {errs}")
+        del batch, streamed
+    return runs
 
 
 def compare_maps(got, want, nan_frames=None):
@@ -542,6 +971,7 @@ def phase_main_path(torch):
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io import zarr_min
     from passiveradar_torch.io.synthetic import Target, write_synth_capture
+    from passiveradar_torch.ops import fft_kernel as fk
     from passiveradar_torch.ops import nlms_kernel as nk
     from passiveradar_torch.ops import resample_kernel as rk
 
@@ -565,6 +995,7 @@ def phase_main_path(torch):
     batches = -(-FRAMES // BATCH)
     rk.mix_regroup_matmul.launches = 0
     nk.nlms_filter_batch.launches = 0
+    fk.fft_fused.launches = 0
     t0 = time.perf_counter()
     n = process_main(["--config", cfg_path])
     torch.cuda.synchronize()
@@ -572,10 +1003,12 @@ def phase_main_path(torch):
     launches = rk.mix_regroup_matmul.launches
     if n != FRAMES:
         raise AssertionError(f"processed {n} of {FRAMES} frames")
-    if launches < 2 * batches or nk.nlms_filter_batch.launches:
+    if launches < 2 * batches or nk.nlms_filter_batch.launches or \
+            fk.fft_fused.launches:
         raise AssertionError(f"mix_regroup_matmul launched {launches} times "
                              f"for {batches} batches, nlms "
-                             f"{nk.nlms_filter_batch.launches}")
+                             f"{nk.nlms_filter_batch.launches}, fft_fused "
+                             f"{fk.fft_fused.launches}")
 
     stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname, mode="r"))
     if stack.shape != (cfg.num_doppler_cells, cfg.num_range_cells + 1,
@@ -655,6 +1088,7 @@ def profile_batch(torch, pl, ref, srv, ph, cfg):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         emit(dict(phase="profile", clutter_method=cfg.clutter_method,
+                  fused_fft=bool(os.environ.get(FUSED_FFT_ENV)),
                   traced_wall_ms=wall_ms, kernels=0,
                   note="the profiler recorded no device activity"))
         return
@@ -674,6 +1108,7 @@ def profile_batch(torch, pl, ref, srv, ph, cfg):
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     emit(dict(phase="profile", clutter_method=cfg.clutter_method,
+              fused_fft=bool(os.environ.get(FUSED_FFT_ENV)),
               traced_wall_ms=wall_ms, kernels=len(kernels),
               device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
               idle_share=1.0 - busy / span,
@@ -709,19 +1144,24 @@ def main() -> int:
 
     row = phase_kernels(torch, dev)
     row_nlms = phase_nlms_kernels(torch, dev)
+    row_fft = phase_fft_kernels(torch, dev)
     phase_chain_parity(torch, dev)
     phase_nlms_chain_parity(torch, dev)
     try:
         params, cfg, launches = phase_main_path(torch)
         row_nlms["launches"] = phase_nlms_main_path(torch, params)
         phase_nlms_fm_parity(torch, dev, params)
+        phase_ls_fused(torch, dev, cfg)
+        stream = phase_stream(torch, dev, params)
+        row_fft["launches"] = stream["ls_multiple"]["fft_fused"]
         phase_steady(torch, dev, cfg)
+        phase_ls_route_ab(torch, dev, cfg)
         phase_steady(torch, dev,
                      derive_config(dict(params, clutter_method="nlms_pallas")))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     row["launches"] = launches
-    emit({"kernels": [row, row_nlms]})
+    emit({"kernels": [row, row_nlms, row_fft]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,11 @@ Device policy (``passiveradar_torch._device``): public entry points take
 ``device="cpu"`` is the only way onto the CPU. Work is complex64 throughout.
 Hand-written CUDA kernels: the polyphase regroup+matmul of the resampler
 (``ops/resample_kernel.py``, ``csrc/mix_regroup.cu``) on the main path,
-and the NLMS clutter canceller (``ops/nlms_kernel.py``, ``csrc/nlms.cu``)
-for ``clutter_method`` 'nlms' and 'nlms_pallas'; ``ops/cuda_build.py``
-builds both.
+the NLMS clutter canceller (``ops/nlms_kernel.py``, ``csrc/nlms.cu``)
+for ``clutter_method`` 'nlms' and 'nlms_pallas', and the fused four-step
+FFT (``ops/fft_kernel.py``, ``csrc/fft_fused.cu``) for the LS canceller's
+full-length transforms under ``PASSIVERADAR_PALLAS_FFT=1``;
+``ops/cuda_build.py`` builds all three.
 """
 
 import torch

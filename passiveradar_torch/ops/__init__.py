@@ -1,6 +1,7 @@
 """DSP operations of the port: torch functions over complex64 tensors, plus
-the hand-written CUDA kernels of the resampler (ops/resample_kernel.py) and
-of the NLMS canceller (ops/nlms_kernel.py)."""
+the hand-written CUDA kernels of the resampler (ops/resample_kernel.py), of
+the NLMS canceller (ops/nlms_kernel.py) and of the fused FFT
+(ops/fft_kernel.py)."""
 
 from passiveradar_torch.ops.caf import fast_xambg
 from passiveradar_torch.ops.clutter import ls_filter_multiple, nlms_filter

@@ -20,7 +20,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mix_regroup", "nlms")
+SOURCES = ("mix_regroup", "nlms", "fft_fused")
 
 
 def source_path(name: str) -> str:

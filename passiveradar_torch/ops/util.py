@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,10 @@ def as_complex(x: torch.Tensor) -> torch.Tensor:
     if x.is_complex():
         return x.to(torch.complex64)
     return torch.view_as_complex(x.float().contiguous())
+
+
+def to_host_complex(x) -> np.ndarray:
+    """A (complex) tensor as host numpy; numpy arrays pass through."""
+    if isinstance(x, np.ndarray):
+        return x
+    return x.detach().cpu().numpy()

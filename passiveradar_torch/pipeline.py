@@ -5,8 +5,10 @@ Port of the JAX package's pipeline.py for one device. Per batch of frames:
     raw per-frame chunks (int16 / float32 IQ pairs)
       → fused down-conversion + polyphase resample   (main.py:122-166;
         the CUDA kernel of ops/resample_kernel.py does the bulk)
-      → clutter removal: multi-Doppler-bin LS         (main.py:168-176),
-        or NLMS on the CUDA kernel of ops/nlms_kernel.py
+      → clutter removal: multi-Doppler-bin LS         (main.py:168-176;
+        its full-length FFTs on the CUDA kernel of ops/fft_kernel.py under
+        PASSIVERADAR_PALLAS_FFT=1), or NLMS on the CUDA kernel of
+        ops/nlms_kernel.py
       → 50% CPI-overlap halo                          (main.py:178-181)
       → windowed fast CAF → range-Doppler frames      (main.py:183-194)
 
@@ -125,6 +127,13 @@ def preprocess_batch(raw, phases, cfg: RadarConfig, device=None):
     dev = resolve_device(device)
     return _preprocess_impl(_to_device(raw, dev), _to_device(phases, dev),
                             cfg)
+
+
+def clutter_batch(ref, srv, cfg: RadarConfig, device=None) -> torch.Tensor:
+    """Clutter-cancel one preprocessed frame batch on ``device`` (default
+    CUDA): (F, output_chunk_length) complex64 ref and srv → cleaned srv."""
+    dev = resolve_device(device)
+    return _clutter_impl(_to_device(ref, dev), _to_device(srv, dev), cfg)
 
 
 def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,

@@ -1,0 +1,198 @@
+"""Streaming (real-time) processing mode (counterpart of the JAX package's
+streaming.py).
+
+Push raw CPI chunks as they arrive from an SDR; each push advances the full
+chain — preprocess → clutter-cancel → halo-complete CAF → CFAR → multitarget
+tracker — and returns the finished results for the *previous* frame (the 50%
+CPI overlap makes one frame of latency inherent: frame f's CAF needs the head
+of frame f+1, reference main.py:178-181).
+
+All state that the reference keeps implicitly in its offline batch graph
+(neighbour chunks for the overlap, the per-block mixing phase, tracker state)
+is carried explicitly on the device, so the processor runs indefinitely with
+O(1) memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from passiveradar_torch._device import resolve_device
+from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.detect.trackers import init_tracks, multitarget_step
+from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops.cfar import cfar_2d
+from passiveradar_torch.ops.util import to_host_complex
+from passiveradar_torch.pipeline import clutter_batch, frame_phases, \
+    preprocess_batch
+
+DETAILS = ("full", "summary")
+
+
+def _track_summary(tracks) -> torch.Tensor:
+    """Pack the per-track scalars into one (n_tracks, 6) float32 tensor.
+
+    Columns: status, lifetime, estimate (range, doppler), last measurement
+    (range, doppler). One small device-to-host copy replaces the full
+    track table's (the Kalman covariances etc. stay on the device) — the
+    cheap leg of the summary mode.
+    """
+    return torch.stack([
+        tracks["status"].to(torch.float32),
+        tracks["lifetime"].to(torch.float32),
+        tracks["estimate"][:, 0], tracks["estimate"][:, 1],
+        tracks["measurement"][:, 0], tracks["measurement"][:, 1],
+    ], dim=1)
+
+
+def _fetch_summary(tracks) -> dict:
+    a = _track_summary(tracks).cpu().numpy()
+    return {
+        "status": a[:, 0].astype(np.int32),
+        "lifetime": a[:, 1].astype(np.int32),
+        "estimate": a[:, 2:4],
+        "measurement": a[:, 4:6],
+    }
+
+
+def _to_host(tree):
+    return {k: _to_host(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in tree.items()}
+
+
+@dataclasses.dataclass
+class StreamResult:
+    frame_index: int
+    caf: Optional[np.ndarray]    # (num_doppler, num_range+1) complex64;
+    #                              None in detail="summary" mode
+    cfar: Optional[np.ndarray]   # same orientation as caf; None in summary mode
+    tracks: Optional[dict]       # full track-table snapshot; None in summary mode
+    summary: Optional[dict] = None   # detail="summary": {status, lifetime,
+    #                                  estimate, measurement} host arrays
+
+
+class StreamingProcessor:
+    """Real-time frame-at-a-time processor with carried tracker state.
+
+    ``detail`` selects the per-push result weight: "full" (default) copies
+    the CAF + CFAR maps and the whole track table to the host every CPI;
+    "summary" copies only a packed track summary (see _track_summary), with
+    the latest maps still available on demand via fetch_maps(). ``device``
+    is where the chain runs (default: the CUDA card). Only the boxcar CAF
+    (``caf_short_filt: true``) is ported.
+    """
+
+    def __init__(self, cfg: RadarConfig, n_tracks: int = 10,
+                 cfar_kernel: tuple = (18, 4), detail: str = "full",
+                 device=None):
+        if detail not in DETAILS:
+            raise ValueError(f"unknown detail mode {detail!r}")
+        if not cfg.caf_short_filt:
+            raise NotImplementedError(
+                "caf_short_filt: false (the flattop CAF) is not ported yet")
+        self.dev = resolve_device(device)
+        self.cfg = cfg
+        self.n_tracks = n_tracks
+        self.cfar_kernel = cfar_kernel
+        self.detail = detail
+        self._last_maps = None
+        self._left_tail = None
+        self._tracks = init_tracks(n_tracks, self.dev)
+        self._extent = torch.tensor(
+            (cfg.max_doppler_actual, cfg.max_range_actual),
+            dtype=torch.float32, device=self.dev)
+        self._hist: list = []    # [(index, ref_if, srv_clean)] last frame
+        self._index = 0
+        win = resolve_window(cfg.caf_window, cfg.caf_input_samples)
+        self._window = None if win is None else \
+            torch.from_numpy(win).to(self.dev)
+
+    def _clean(self, raw_ref, raw_srv):
+        cfg = self.cfg
+        phases = frame_phases(cfg, [self._index])
+
+        def ship(raw):
+            # a tensor (already on the device, or not) is used as it is;
+            # numpy goes over once: float32 interleaved IQ or complex64
+            if not torch.is_tensor(raw):
+                raw = torch.from_numpy(np.ascontiguousarray(raw))
+            return raw[None]
+
+        r = preprocess_batch(ship(raw_ref), phases, cfg, device=self.dev)
+        s = preprocess_batch(ship(raw_srv), phases, cfg, device=self.dev)
+        s = clutter_batch(r, s, cfg, device=self.dev)
+        return r, s
+
+    def _finish(self, prev, cur, last: bool = False,
+                detail: Optional[str] = None) -> StreamResult:
+        cfg = self.cfg
+        detail = self.detail if detail is None else detail
+        idx, ref_c, srv_c = prev
+        h = cfg.window_overlap
+        n = ref_c.shape[1]
+        zeros = torch.zeros(h, dtype=ref_c.dtype, device=ref_c.device)
+        left_r, left_s = (zeros, zeros) if idx == 0 else self._left_tail
+        # :h and n - h: (not -h) so h == 0 (overlap_cpi: false) gives empty
+        # halos instead of the whole frame
+        right_r, right_s = (zeros, zeros) if last else \
+            (cur[0][0, :h], cur[1][0, :h])
+        caf = fast_xambg(torch.cat([left_r, ref_c[0], right_r]),
+                         torch.cat([left_s, srv_c[0], right_s]),
+                         cfg.num_range_cells, cfg.num_doppler_cells,
+                         window=self._window, short_filt=cfg.caf_short_filt)
+        cf = cfar_2d(caf.abs(), *self.cfar_kernel)
+        self._tracks = multitarget_step(self._tracks, cf, self._extent,
+                                        self.n_tracks, cfg.candidate_budget)
+        self._left_tail = (ref_c[0, n - h:], srv_c[0, n - h:])
+        self._last_maps = (caf, cf)
+        if detail == "summary":
+            return StreamResult(
+                frame_index=idx, caf=None, cfar=None, tracks=None,
+                summary=_fetch_summary(self._tracks),
+            )
+        return StreamResult(
+            frame_index=idx,
+            caf=to_host_complex(caf),
+            cfar=cf.cpu().numpy(),
+            tracks=_to_host(self._tracks),
+        )
+
+    def fetch_maps(self):
+        """Copy the most recently finished frame's (caf, cfar) maps to the
+        host. The on-demand companion to ``detail="summary"`` pushes;
+        returns None before the first finished frame."""
+        if self._last_maps is None:
+            return None
+        caf, cf = self._last_maps
+        return to_host_complex(caf), cf.cpu().numpy()
+
+    def push(self, raw_ref, raw_srv,
+             detail: Optional[str] = None) -> Optional[StreamResult]:
+        """Feed one frame's raw chunk per channel (interleaved float32 of
+        length input_chunk_length, or complex64 of half that; numpy or a
+        tensor, which is not copied through the host). Returns the
+        completed result for the previous frame, or None for the first
+        push. ``detail`` overrides the processor default for this push
+        ("full" / "summary" — see the class docstring)."""
+        if detail is not None and detail not in DETAILS:
+            raise ValueError(f"unknown detail mode {detail!r}")
+        cleaned = self._clean(raw_ref, raw_srv)
+        result = None
+        if self._hist:
+            result = self._finish(self._hist[-1], cleaned, detail=detail)
+        self._hist = [(self._index, *cleaned)]
+        self._index += 1
+        return result
+
+    def flush(self, detail: Optional[str] = None) -> Optional[StreamResult]:
+        """Finish the final in-flight frame (zero right halo at stream
+        end)."""
+        if not self._hist:
+            return None
+        result = self._finish(self._hist[-1], None, last=True, detail=detail)
+        self._hist = []
+        return result

@@ -1,5 +1,6 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions, and the whole chain on the card against the CPU.
+versions, and the whole chain and the streaming processor on the card
+against the CPU.
 
 Marked ``cuda``; each test skips when no CUDA card is present (decided in
 the fixture, at run time). On a machine with the card:
@@ -16,9 +17,12 @@ torch.set_num_threads(1)
 from passiveradar_torch.config import derive_config  # noqa: E402
 from passiveradar_torch.io.synthetic import (  # noqa: E402
     Target, synth_capture_arrays)
+from passiveradar_torch.ops import fft_kernel as fk  # noqa: E402
 from passiveradar_torch.ops import nlms_kernel as nk  # noqa: E402
 from passiveradar_torch.ops import resample_kernel as rk  # noqa: E402
+from passiveradar_torch.ops.clutter import ls_filter_multiple  # noqa: E402
 from passiveradar_torch.pipeline import frame_phases, process_frames  # noqa: E402
+from passiveradar_torch.streaming import StreamingProcessor  # noqa: E402
 
 
 @pytest.fixture
@@ -180,3 +184,99 @@ def test_process_frames_nlms_card_matches_cpu(cuda, method):
     assert np.max(np.abs(g - w)) < 1e-4 * np.max(np.abs(w))
     for f in range(len(finite)):
         assert np.argmax(np.abs(g[f])) == np.argmax(np.abs(w[f]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", sorted(fk._SPLITS))
+def test_fft_fused_kernel_matches_plain(cuda, n, inverse):
+    """Kernel vs its plain version and cuFFT on the same card tensors, at
+    every split; tolerances of tests/test_mxufft.py (2e-5·√n forward, 2e-5
+    inverse)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((3, n), dtype=torch.complex64, generator=gen,
+                    device=cuda)
+    before = fk.fft_fused.launches
+    got = fk.fft_fused(x, inverse=inverse)
+    assert fk.fft_fused.launches == before + 1
+    plain = fk.fft_fused_reference(x, inverse=inverse)
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    torch.cuda.synchronize()
+    tol = 2e-5 if inverse else 2e-5 * n ** 0.5
+    assert (got - plain).abs().max().item() < tol
+    assert (got - lib).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_fft_fused_kernel_strided_and_real_input(cuda):
+    """A strided view (as ls_filter_multiple's f_extra[:, 0]) is made
+    contiguous; leading dims and real input as on the CPU."""
+    n = 65536
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 3, n), dtype=torch.complex64, generator=gen,
+                    device=cuda)
+    got = fk.fft_fused(x[:, 1])
+    want = torch.fft.fft(x[:, 1])
+    assert (got - want).abs().max().item() < 2e-5 * n ** 0.5
+    got = fk.fft_fused(x.real)
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    assert (got - torch.fft.fft(x.real)).abs().max().item() < 2e-5 * n ** 0.5
+    with pytest.raises(ValueError, match="unsupported length"):
+        fk.fft_fused(x[..., :8192])
+
+
+@pytest.mark.cuda
+def test_ls_filter_fused_route_launches_kernel(cuda, monkeypatch):
+    """The LS canceller at n = 65,536 on the card: under the opt-in its two
+    full-length transforms launch the kernel, and the result stays within
+    2e-4 of the cuFFT route."""
+    n = 65536
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ref = torch.randn((2, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    srv = 0.3 * torch.roll(ref, 7, dims=1) + 0.1 * torch.randn(
+        (2, n), dtype=torch.complex64, generator=gen, device=cuda)
+    bins = (0.0, 1.0, -1.0, 2.0, -2.0)
+    monkeypatch.delenv("PASSIVERADAR_PALLAS_FFT", raising=False)
+    want = ls_filter_multiple(ref, srv, 22, float(n), bins)
+    monkeypatch.setenv("PASSIVERADAR_PALLAS_FFT", "1")
+    before = fk.fft_fused.launches
+    got = ls_filter_multiple(ref, srv, 22, float(n), bins)
+    torch.cuda.synchronize()
+    assert fk.fft_fused.launches == before + 2
+    assert (got - want).abs().max().item() < 2e-4
+
+
+@pytest.mark.cuda
+def test_streaming_card_matches_cpu(cuda):
+    """The streaming processor at TINY on the card against the CPU: CAFs
+    within 1e-4 of the peak, track tables equal in status and lifetime."""
+    cfg = derive_config(dict(input_sample_rate=49152,
+                             input_center_freq=1_000_000,
+                             channel_freq=990_170, channel_bandwidth=12800,
+                             cpi_seconds_nominal=1.0,
+                             max_doppler_nominal=128.0,
+                             max_range_nominal=400.0))
+    nfr = 6
+    ref, srv = synth_capture_arrays(cfg, nfr, targets=(Target(40, 20.0, 0.3),))
+    length = cfg.input_chunk_length
+    ref = ref[:nfr * length].reshape(nfr, length)
+    srv = srv[:nfr * length].reshape(nfr, length)
+    card = StreamingProcessor(cfg, n_tracks=4)
+    host = StreamingProcessor(cfg, n_tracks=4, device="cpu")
+    for f in range(nfr + 1):
+        if f < nfr:
+            got = card.push(torch.from_numpy(ref[f]).to(cuda),
+                            torch.from_numpy(srv[f]).to(cuda))
+            want = host.push(ref[f], srv[f])
+        else:
+            got, want = card.flush(), host.flush()
+        if want is None:
+            assert got is None
+            continue
+        peak = np.max(np.abs(want.caf))
+        assert np.max(np.abs(got.caf - want.caf)) < 1e-4 * peak
+        np.testing.assert_array_equal(got.tracks["status"],
+                                      want.tracks["status"])
+        np.testing.assert_array_equal(got.tracks["lifetime"],
+                                      want.tracks["lifetime"])
