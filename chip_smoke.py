@@ -11,12 +11,14 @@ Phases, one JSON line each; any failure exits non-zero:
 3. kernels: every CUDA kernel against its plain torch version on the card,
    at the FM shapes and at ragged small ones (the NLMS kernel in both
    zero-window semantics, with a zero run, a ragged tap count and a warm
-   start; the fused FFT at every supported length, forward and inverse,
-   also against cuFFT, and on a strided view), with times (kernel, plain
-   version, one library call where there is one) and the reckoned bound;
-   the NLMS kernel also at the shape of bench_nlms.py and the FFT at that of
-   bench_fft_fused.py; then the whole chain on the card against the CPU at a
-   small geometry, for the LS and both NLMS clutter methods;
+   start; the fused FFT at every supported length, forward and inverse, at
+   one and three frames, also against cuFFT, and on a strided view), with
+   times (kernel, plain version, one library call where there is one) and
+   the reckoned bound; the NLMS kernel also at the shape of bench_nlms.py,
+   the FFT at a stream push's shapes and at that of bench_fft_fused.py,
+   with its device time per pass and cuFFT's; then the whole chain on the
+   card against the CPU at a small geometry, for the LS and both NLMS
+   clutter methods;
 4. main path: an FM broadcast capture (2.4 MS/s, 200 kHz channel, 2 s CPI,
    16 frames, two targets) through ``passiveradar_torch.cli.process`` on
    the card with the LS canceller, then the same capture with
@@ -418,35 +420,66 @@ def fft_bound(b: int, n: int):
     return flops_bound(nbytes, flops) + (nbytes, flops)
 
 
+def fft_device_ms(torch, fn, iters: int = 10) -> dict:
+    """Device ms per call of fn's kernels, from torch.profiler over
+    ``iters`` calls: the fused FFT's two passes by name and the sum of
+    every kernel (``total``); None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict(fft_columns=0.0, fft_rows=0.0, total=0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        out["total"] += us
+        for name in ("fft_columns", "fft_rows"):
+            if name in e.name:
+                out[name] += us
+    return {k: v / iters / 1e3 if v else None for k, v in out.items()}
+
+
 def phase_fft_kernels(torch, dev):
     """The fused FFT against its plain version and cuFFT at every supported
-    length, forward and inverse (test_mxufft.py's tolerances), on a strided
-    view, and timed at the FM clutter shapes and bench_fft_fused.py's."""
+    length, forward and inverse, at B = 1 and 3 (test_mxufft.py's
+    tolerances), on a strided view; timed at the FM clutter shapes, a
+    stream push's shapes and bench_fft_fused.py's, with the device time of
+    each pass; at the clutter's forward shape its error against the
+    complex128 transform may not exceed cuFFT's."""
     from passiveradar_torch.ops import fft_kernel as fk
 
     gen = torch.Generator(device=dev).manual_seed(3)
     checks = []
     for n in sorted(fk._SPLITS):
-        x = torch.randn((3, n), dtype=torch.complex64, generator=gen,
-                        device=dev)
-        for inverse in (False, True):
-            got = fk.fft_fused(x, inverse=inverse)
-            plain = fk.fft_fused_reference(x, inverse=inverse)
-            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
-            torch.cuda.synchronize()
-            tol = 2e-5 if inverse else 2e-5 * math.sqrt(n)
-            e_plain = (got - plain).abs().max().item()
-            e_lib = (got - lib).abs().max().item()
-            checks.append(dict(n=n, inverse=inverse, err_plain=e_plain,
-                               err_cufft=e_lib, tol=tol))
-            if not (e_plain < tol and e_lib < tol):
-                raise AssertionError(f"fft_fused disagrees at n={n}, "
-                                     f"inverse={inverse}: {checks[-1]}")
+        for b in (1, 3):
+            x = torch.randn((b, n), dtype=torch.complex64, generator=gen,
+                            device=dev)
+            for inverse in (False, True):
+                got = fk.fft_fused(x, inverse=inverse)
+                plain = fk.fft_fused_reference(x, inverse=inverse)
+                lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+                torch.cuda.synchronize()
+                tol = 2e-5 if inverse else 2e-5 * math.sqrt(n)
+                e_plain = (got - plain).abs().max().item()
+                e_lib = (got - lib).abs().max().item()
+                checks.append(dict(n=n, b=b, inverse=inverse,
+                                   err_plain=e_plain, err_cufft=e_lib,
+                                   tol=tol))
+                if not (e_plain < tol and e_lib < tol):
+                    raise AssertionError(f"fft_fused disagrees at n={n}, "
+                                         f"b={b}, inverse={inverse}: "
+                                         f"{checks[-1]}")
 
     n = 262144
     f = BATCH + 2
     shapes = dict(forward=((f, 3, n), False), inverse=((f, n), True),
-                  bench=(FFT_BENCH, False))
+                  bench=(FFT_BENCH, False), push_forward=((3, n), False),
+                  push_inverse=((1, n), True))
     timed = {}
     for key, (shape, inverse) in shapes.items():
         x = torch.randn(shape, dtype=torch.complex64, generator=gen,
@@ -457,12 +490,19 @@ def phase_fft_kernels(torch, dev):
         exact = lib_fn(x.to(torch.complex128))
         torch.cuda.synchronize()
         err = (got - plain).abs().max().item()
-        # both float32 FFTs against the complex128 transform
-        err_f64 = dict(kernel=(got - exact).abs().max().item(),
-                       cufft=(lib_fn(x) - exact).abs().max().item())
+        # both float32 FFTs against the complex128 transform: max |error|,
+        # and over the output's rms
+        rms = exact.abs().pow(2).mean().sqrt().item()
+        e_k = (got - exact).abs().max().item()
+        e_c = (lib_fn(x) - exact).abs().max().item()
+        err_f64 = dict(kernel=e_k, cufft=e_c, kernel_over_rms=e_k / rms,
+                       cufft_over_rms=e_c / rms)
         tol = 2e-5 if inverse else 2e-5 * math.sqrt(n)
         if not err < tol:
             raise AssertionError(f"fft_fused disagrees at {shape}: {err}")
+        if key == "forward" and not e_k <= e_c:
+            raise AssertionError(f"fft_fused less accurate than cuFFT at "
+                                 f"{shape}: {err_f64}")
         del got, plain, exact
         b = x.numel() // n
         bound_ms, bound_by, nbytes, flops = fft_bound(b, n)
@@ -470,13 +510,19 @@ def phase_fft_kernels(torch, dev):
         plain_ms = cuda_ms(torch, lambda: fk.fft_fused_reference(
             x, inverse=inverse), 5)
         lib_ms = cuda_ms(torch, lambda: lib_fn(x), 20)
+        device_ms = fft_device_ms(torch, lambda: fk.fft_fused(
+            x, inverse=inverse))
+        lib_device_ms = fft_device_ms(torch, lambda: lib_fn(x))["total"]
         timed[key] = dict(shape=list(shape), inverse=inverse,
                           max_abs_err=err, err_vs_complex128=err_f64,
                           kernel_ms=ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, bound_ms=bound_ms,
+                          library_ms=lib_ms, library_ratio=ms / lib_ms,
+                          bound_ms=bound_ms, two_pass_floor_ms=2 * bound_ms,
                           bound_by=bound_by, bytes=nbytes, flops=flops,
                           bound_share=bound_ms / ms,
-                          achieved_gbytes_per_s=nbytes / ms / 1e6)
+                          achieved_gbytes_per_s=nbytes / ms / 1e6,
+                          device_ms=device_ms,
+                          library_device_ms=lib_device_ms)
         del x
 
     # a strided view: ls_filter_multiple hands over f_extra[:, 0]
@@ -586,8 +632,9 @@ def phase_ls_route_ab(torch, dev, cfg):
     """The LS steady-state batch on the cuFFT route and on the fused-FFT
     route in turns (cuFFT, fused, fused, cuFFT, five times): batch and
     clutter-stage ms by CUDA events, the host time to enqueue one forward
-    FFT of the clutter's shape on each route, and one profiled batch on
-    the fused route."""
+    FFT of the clutter's shape on each route (the median of ten loops of
+    20 calls, in the same turns), and one profiled batch on the fused
+    route."""
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.io.hdf5 import CaptureReader
     from passiveradar_torch.ops import fft_kernel as fk
@@ -629,22 +676,25 @@ def phase_ls_route_ab(torch, dev, cfg):
 
     x = torch.randn((f, 3, cfg.output_chunk_length), dtype=torch.complex64,
                     device=dev)
-    enqueue = {}
-    for route, fn in (("cufft", lambda: torch.fft.fft(x)),
-                      ("fused", lambda: fk.fft_fused(x))):
-        fn()
+    fns = dict(cufft=lambda: torch.fft.fft(x),
+               fused=lambda: fk.fft_fused(x))
+    enqueue_runs = dict(cufft=[], fused=[])
+    for route in ("cufft", "fused") + ("cufft", "fused", "fused", "cufft") * 5:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
-            fn()
-        enqueue[route] = (time.perf_counter() - t0) / 20 * 1e3
+            fns[route]()
+        enqueue_runs[route].append((time.perf_counter() - t0) / 20 * 1e3)
         torch.cuda.synchronize()
+    enqueue_runs = {r: v[1:] for r, v in enqueue_runs.items()}   # warm-up
+    enqueue = {r: float(np.median(v)) for r, v in enqueue_runs.items()}
     del x
     emit(dict(phase="ls_route_ab", buffer_frames=f, runs_each=10,
               order="cufft, fused, fused, cufft; x5",
               median_ms={r: {k: float(np.median(v)) for k, v in t.items()}
                          for r, t in times.items()},
-              runs_ms=times, enqueue_ms_per_forward_fft=enqueue))
+              runs_ms=times, enqueue_ms_per_forward_fft=enqueue,
+              enqueue_runs_ms=enqueue_runs))
     with fused_fft():
         profile_batch(torch, pl, ref, srv, ph, cfg)
 

@@ -21,12 +21,12 @@ cast to float32 is their only rounding.
 Kernel (``csrc/fft_fused.cu``, CUDA C++ for sm_90a, built by
 ``ops/cuda_build.py`` and bound with ctypes): two passes over device memory,
 the column DFTs with the twiddle, then the row DFTs with the transposed
-store, each a radix-2 Stockham FFT on tiles of 4,096 samples in shared
-memory; its note says what bounds it. On a CPU tensor the wrapper runs
-``fft_fused_reference``, the four-step above as two complex64 matrix
-products (full f32); on a CUDA tensor it always launches the kernel and
-raises if the build or the launch fails. ``fft_fused.launches`` counts
-wrapper calls that launched it.
+store, each FFT three Stockham stages of radix 8, 8 and L/64 with the
+samples in registers and one shared buffer for the exchanges; its note says
+what bounds it. On a CPU tensor the wrapper runs ``fft_fused_reference``,
+the four-step above as two complex64 matrix products (full f32); on a CUDA
+tensor it always launches the kernel and raises if the build or the launch
+fails. ``fft_fused.launches`` counts wrapper calls that launched it.
 
 ``use_fused`` reads ``PASSIVERADAR_PALLAS_FFT`` at call time, as the JAX
 package does: ``ops/fft.py`` routes its full-length transforms here when it
@@ -95,26 +95,31 @@ def _device_tables(n: int, inverse: bool, device: torch.device):
     return tuple(torch.from_numpy(t).to(device) for t in _tables(n, inverse))
 
 
-@functools.lru_cache(maxsize=32)
-def _kernel_tables(n: int, inverse: bool, device: torch.device):
-    """The kernel's tables on ``device``: W_R^k and W_C^k for k below R/2
-    and C/2 (the radix-2 butterflies' twiddles) and the (R, C) twiddle
-    plane, all from the float64 reduced angles of ``_tables``."""
-    r, c = _SPLITS[n]
-    wr = _exp(np.arange(r // 2, dtype=np.float64), r, inverse)
-    wc = _exp(np.arange(c // 2, dtype=np.float64), c, inverse)
-    tw = _tables(n, inverse)[2]
-    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                 for t in (wr, wc, tw))
+def _stage_twiddles(length: int) -> np.ndarray:
+    """The butterfly twiddles of the kernel's ``length``-point FFT (128, 256
+    or 512: Stockham stages of radix 8, 8 and length/64): W_64^(r·k) for
+    r = 1..7, k < 8, then W_length^(r·b) for r = 1..length/64 - 1, b < 64,
+    complex64 from the float64 reduced angles of ``_exp``. The kernel runs
+    the inverse as conj ∘ forward ∘ conj, so these are forward twiddles."""
+    r, k = np.meshgrid(np.arange(1, 8), np.arange(8), indexing="ij")
+    rb, b = np.meshgrid(np.arange(1, length // 64), np.arange(64),
+                        indexing="ij")
+    return np.concatenate([_exp(r * k, 64, False).ravel(),
+                           _exp(rb * b, length, False).ravel()])
+
+
+def _kernel_tables(n: int, device: torch.device):
+    """The kernel's tables on ``device``: the stage twiddles of the R- and
+    the C-point FFT of n's split (``_stage_twiddles``)."""
+    return tuple(torch.from_numpy(_stage_twiddles(m)).to(device)
+                 for m in _SPLITS[n])
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fft_fused")
-    lib.fft_fused_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.fft_fused_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.fft_fused_launch.restype = ctypes.c_int
     lib.fft_fused_error_string.argtypes = [ctypes.c_int]
     lib.fft_fused_error_string.restype = ctypes.c_char_p
@@ -144,33 +149,45 @@ def fft_fused_reference(x: torch.Tensor,
     return y.transpose(-1, -2).reshape(lead + (n,))
 
 
+@functools.lru_cache(maxsize=32)
+def _device_state(n: int, index: int) -> tuple:
+    """What a launch at length n on card ``index`` needs besides x: the
+    split, the tables' addresses, the bound entry point, and the tables
+    themselves (held here so that their addresses stay valid)."""
+    tw_r, tw_c = _kernel_tables(n, torch.device("cuda", index))
+    return (*_SPLITS[n], tw_r.data_ptr(), tw_c.data_ptr(),
+            _library().fft_fused_launch, (tw_r, tw_c))
+
+
 def fft_fused(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """DFT along the last axis (see the module docstring). x: (..., N)
     complex64 or real, N in the split table → (..., N) complex64. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
-    if x.device.type != "cuda":
+    tensors launch the kernel; CPU tensors take the plain version. The
+    checks are cheap on purpose: the stream's transforms are small enough
+    for the host's enqueue time to matter."""
+    if not x.is_cuda:
         return fft_fused_reference(x, inverse)
-    x, n = _prepare(x)
-    r, c = _SPLITS[n]
-    lead = x.shape[:-1]
-    xb = x.reshape(-1, n).contiguous()
-    b = xb.shape[0]
-    out = torch.empty_like(xb)
-    if b == 0:
-        return out.reshape(lead + (n,))
-    scratch = torch.empty_like(xb)
-    wr, wc, tw = _kernel_tables(n, inverse, xb.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(xb.device).cuda_stream
-    err = lib.fft_fused_launch(xb.data_ptr(), scratch.data_ptr(),
-                               out.data_ptr(), wr.data_ptr(), wc.data_ptr(),
-                               tw.data_ptr(), b, r, c,
-                               float(1.0 / n) if inverse else 1.0, stream)
+    if x.dtype != torch.complex64:
+        x, _ = _prepare(x)
+    n = x.shape[-1]
+    if n not in _SPLITS:
+        raise ValueError(f"fft_fused: unsupported length {n}")
+    if not x.is_contiguous() or x.data_ptr() % 16:    # 16 bytes a thread
+        x = x.clone(memory_format=torch.contiguous_format)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    index = x.get_device()
+    r, c, tw_r, tw_c, launch, _ = _device_state(n, index)
+    scratch = torch.empty_like(x)
+    err = launch(x.data_ptr(), scratch.data_ptr(), out.data_ptr(), tw_r, tw_c,
+                 x.numel() // n, r, c, inverse, index,
+                 torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError("fft_fused kernel launch failed: "
-                           + lib.fft_fused_error_string(err).decode())
+                           + _library().fft_fused_error_string(err).decode())
     fft_fused.launches += 1
-    return out.reshape(lead + (n,))
+    return out
 
 
 fft_fused.launches = 0

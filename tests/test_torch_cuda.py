@@ -188,13 +188,15 @@ def test_process_frames_nlms_card_matches_cpu(cuda, method):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", sorted(fk._SPLITS))
-def test_fft_fused_kernel_matches_plain(cuda, n, inverse):
+@pytest.mark.parametrize("n,b", [(n, b) for n in sorted(fk._SPLITS)
+                                 for b in (1, 3)] + [(262144, 30)])
+def test_fft_fused_kernel_matches_plain(cuda, n, b, inverse):
     """Kernel vs its plain version and cuFFT on the same card tensors, at
-    every split; tolerances of tests/test_mxufft.py (2e-5·√n forward, 2e-5
+    every split, one and three frames, and the LS clutter's 30 frames at
+    2^18; tolerances of tests/test_mxufft.py (2e-5·√n forward, 2e-5
     inverse)."""
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    x = torch.randn((3, n), dtype=torch.complex64, generator=gen,
+    gen = torch.Generator(device=cuda).manual_seed(n + b)
+    x = torch.randn((b, n), dtype=torch.complex64, generator=gen,
                     device=cuda)
     before = fk.fft_fused.launches
     got = fk.fft_fused(x, inverse=inverse)
@@ -210,7 +212,8 @@ def test_fft_fused_kernel_matches_plain(cuda, n, inverse):
 @pytest.mark.cuda
 def test_fft_fused_kernel_strided_and_real_input(cuda):
     """A strided view (as ls_filter_multiple's f_extra[:, 0]) is made
-    contiguous; leading dims and real input as on the CPU."""
+    contiguous; leading dims and real input as on the CPU; an input that
+    is not 16-byte aligned is copied."""
     n = 65536
     gen = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn((2, 3, n), dtype=torch.complex64, generator=gen,
@@ -223,6 +226,12 @@ def test_fft_fused_kernel_strided_and_real_input(cuda):
     assert (got - torch.fft.fft(x.real)).abs().max().item() < 2e-5 * n ** 0.5
     with pytest.raises(ValueError, match="unsupported length"):
         fk.fft_fused(x[..., :8192])
+    # 8 bytes past an aligned start: copied, not read misaligned
+    odd = torch.randn(n + 1, dtype=torch.complex64, generator=gen,
+                      device=cuda)[1:]
+    assert odd.data_ptr() % 16 == 8
+    got = fk.fft_fused(odd)
+    assert (got - torch.fft.fft(odd)).abs().max().item() < 2e-5 * n ** 0.5
 
 
 @pytest.mark.cuda

@@ -75,6 +75,60 @@ def test_tables_match_jax(n, inverse):
         np.testing.assert_array_equal(got.imag, im)
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", sorted(fk._SPLITS))
+def test_kernel_tables_match_float64(n, inverse):
+    """The kernel's stage twiddles for R and C against the float64
+    exponentials and against the planes of _tables: within 2 float32 ulps.
+    The kernel runs the inverse as conj ∘ forward ∘ conj, so its tables
+    are the conjugates of the inverse planes (D_C also without its 1/n)."""
+    dr, dc, _ = fk._tables(n, inverse)
+    for length, got, plane in zip(fk._SPLITS[n],
+                                  fk._kernel_tables(n, torch.device("cpu")),
+                                  (dr, dc * np.float32(n) if inverse else dc)):
+        got = got.numpy()
+        assert got.dtype == np.complex64
+        assert got.shape == (56 + (length // 64 - 1) * 64,)
+        r, k = np.meshgrid(np.arange(1, 8), np.arange(8), indexing="ij")
+        rb, b = np.meshgrid(np.arange(1, length // 64), np.arange(64),
+                            indexing="ij")
+        # exponents over `length`: W_64^(r·k) = W_L^(r·k·L/64), W_L^(r·b)
+        e = np.concatenate([(r * k * (length // 64)).ravel(),
+                            (rb * b).ravel()])
+        exact = np.exp(-2j * np.pi * e / length)
+        fwd = np.conj(plane[1, e % length]) if inverse else plane[1, e % length]
+        for want in (exact.astype(np.complex64), fwd):
+            np.testing.assert_array_max_ulp(got.real, want.real, maxulp=2)
+            np.testing.assert_array_max_ulp(got.imag, want.imag, maxulp=2)
+        assert np.abs(got - exact).max() <= 2 * 2.0 ** -24
+
+
+@pytest.mark.parametrize("length", [128, 256, 512])
+def test_stage_twiddles_give_the_dft(length):
+    """The kernel's three Stockham stages (radix 8, 8, length/64; Ns = 1,
+    8, 64), in numpy with its tables and its read, twiddle and write
+    indices, give the DFT: the arithmetic the CUDA kernel's threads run,
+    held against numpy's FFT."""
+    tw = fk._stage_twiddles(length).astype(np.complex128)
+    x = _rand_c((2, length), seed=length).astype(np.complex128)
+    a = x
+    for ns, radix, off in ((1, 8, None), (8, 8, 0), (64, length // 64, 56)):
+        nb = length // radix                    # butterflies
+        j = np.arange(nb)
+        k = j % ns
+        r = np.arange(radix)[:, None]
+        v = a[:, j[None, :] + nb * r]           # (batch, radix, nb)
+        if off is not None:                     # W_{ns·radix}^(r·k), r ≥ 1
+            w = np.ones((radix, nb), dtype=complex)
+            w[1:] = tw[off + (r[1:] - 1) * ns + k[None, :]]
+            v = v * w
+        v = np.fft.fft(v, axis=1)
+        out = np.empty_like(a)
+        out[:, (j // ns)[None, :] * ns * radix + k[None, :] + ns * r] = v
+        a = out
+    np.testing.assert_allclose(a, np.fft.fft(x), atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("fn", ["reference", "wrapper"])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n", SIZES)
