@@ -6,15 +6,19 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: every csrc/*.cu for sm_90a, one nvcc each, all started at once,
-   from the checkout, with ptxas' registers and spills;
+2. build: every csrc/*.cu for sm_90a, and csrc/nlms.cu again at the block
+   length NLMS_OTHER_BLOCK, one nvcc each, all started at once, from the
+   checkout, with ptxas' registers and spills;
 3. kernels: every CUDA kernel against its plain torch version on the card,
    at the FM shapes and at ragged small ones (the NLMS kernel in both
-   zero-window semantics, with a zero run, a ragged tap count and a warm
-   start; the fused FFT at every supported length, forward and inverse, at
-   one and three frames, also against cuFFT, and on a strided view), with
-   times (kernel, plain version, one library call where there is one) and
-   the reckoned bound; the NLMS kernel also at the shape of bench_nlms.py,
+   zero-window semantics, with a zero run, a ragged tap count, a warm
+   start, zero runs from a block's edge and from mid-block, steps no
+   multiple of the block and 512 taps; the fused FFT at every supported
+   length, forward and inverse, at one and three frames, also against
+   cuFFT, and on a strided view), with times (kernel, plain version, one
+   library call where there is one) and the reckoned bound; the NLMS
+   kernel also at the shape of bench_nlms.py and, built with its default
+   block length and with NLMS_OTHER_BLOCK, at the FM shape (the P table);
    the FFT at a stream push's shapes and at that of bench_fft_fused.py,
    with its device time per pass and cuFFT's; then the whole chain on the
    card against the CPU at a small geometry, for the LS and both NLMS
@@ -46,6 +50,7 @@ beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -53,6 +58,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -94,6 +100,8 @@ STEADY_RUNS = 10
 # dependent steps; the port's plain loop and the JAX scan differ by ~4e-7
 NLMS_TOL = 1e-5
 NLMS_CHECK_N = 16384     # length of the kernel-vs-plain checks
+NLMS_EDGE_N = 4096       # length of the block-edge checks: steps % P == 7
+NLMS_OTHER_BLOCK = 64    # csrc/nlms.cu's P table: this against the default
 NLMS_BENCH = dict(B=128, N=262144, filter_len=175, peek=10)  # bench_nlms.py
 FFT_BENCH = (8, 262144)  # bench_fft_fused.py
 STREAM_TOL = 1e-3        # streamed CAF vs process_frames, over the map peak
@@ -313,12 +321,15 @@ def check_nlms(torch, nk, ref, srv, flen, mu, **kw):
         mask = torch.isnan(w)
         if not torch.equal(torch.isnan(g), mask):
             raise AssertionError(f"NLMS kernel NaN mask differs ({kw})")
+        nans += int(mask.sum())
+        if mask.all():
+            continue
         e = (g[~mask] - w[~mask]).abs().max().item()
         p = w[~mask].abs().max().item()
         if not (math.isfinite(e) and e <= NLMS_TOL * p):
             raise AssertionError(f"NLMS kernel disagrees with its plain "
                                  f"version ({kw}): err {e} peak {p}")
-        err, peak, nans = max(err, e), max(peak, p), nans + int(mask.sum())
+        err, peak = max(err, e), max(peak, p)
     return err, peak, nans
 
 
@@ -333,7 +344,14 @@ def nlms_inputs(torch, gen, dev, f, n):
     return ref, srv
 
 
-def phase_nlms_kernels(torch, dev):
+def phase_nlms_kernels(torch, dev, other_block_lib):
+    """The NLMS kernel against its plain version: both zero-window modes
+    with zero windows in one frame, a ragged tap count, a warm start, and
+    the block form's edges (a zero run from a block's first step and from
+    mid-block, in both modes, steps no multiple of P, m = 512); timed at
+    the FM shape and bench_nlms.py's; then the P table: the default build
+    and ``other_block_lib`` (csrc/nlms.cu at NLMS_OTHER_BLOCK), each checked
+    and timed at the FM shape."""
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.ops import nlms_kernel as nk
 
@@ -359,12 +377,32 @@ def phase_nlms_kernels(torch, dev):
     err, peak, _ = check_nlms(torch, nk, ref, srv, flen, mu,
                               initial_taps=taps, return_filter=True)
     checks["warm_start_taps"] = dict(max_abs_err=err, rel_err=err / peak)
+    # the block form's edges, at NLMS_EDGE_N (steps % P == 7)
+    p_block = nk._library().nlms_block_steps()
+    edge = {}
+    for where, start in (("block_edge", 40 * p_block + 1),
+                         ("mid_block", 40 * p_block + 14)):
+        r, v = nlms_inputs(torch, gen, dev, 3, NLMS_EDGE_N)
+        r[1, start:start + m + 50] = 0    # first zero window: step start-1
+        edge[where] = (r, v)
+        for zw in nk.ZERO_WINDOWS:
+            err, peak, nans = check_nlms(torch, nk, r, v, flen, mu,
+                                         zero_window=zw, return_filter=True)
+            if (nans > 0) != (zw == "nan"):
+                raise AssertionError(f"{where}/{zw}: {nans} NaN outputs")
+            checks[f"zero_run_{where}_{zw}"] = dict(
+                max_abs_err=err, rel_err=err / peak, nan=nans)
+    r, v = edge["mid_block"]
+    for zw in nk.ZERO_WINDOWS:
+        err, peak, _ = check_nlms(torch, nk, r, v, nk.MAX_TAPS - 10, mu,
+                                  zero_window=zw, return_filter=True)
+        checks[f"m512_{zw}"] = dict(max_abs_err=err, rel_err=err / peak)
     max_err = max(c["max_abs_err"] for c in checks.values())
     check_ms = cuda_ms(torch, lambda: nk.nlms_filter_batch(
         ref, srv, flen, mu), 3, warmup=1)
     plain_ms = cuda_ms(torch, lambda: nk.nlms_filter_batch_plain(
         ref, srv, flen, mu), 1, warmup=0)
-    del ref, srv, taps
+    del ref, srv, taps, edge
 
     # the FM batch: F = 10 frames of output_chunk_length samples
     big_n = cfg.output_chunk_length
@@ -391,13 +429,30 @@ def phase_nlms_kernels(torch, dev):
     bench_flops = 16.0 * bm * (bn - bm) * bb
     del ref, srv
 
+    # the P table: each build checked (zero run mid-block, "nan") and timed
+    # at the FM shape
+    ref, srv = nlms_inputs(torch, gen, dev, f, big_n)
+    r, v = nlms_inputs(torch, gen, dev, 3, NLMS_EDGE_N)
+    r[1, 40 * 64 + 14:40 * 64 + 14 + m + 50] = 0
+    table = {}
+    for lib in (nk._library(), other_block_lib):
+        with mock.patch.object(nk, "_library", return_value=lib):
+            err, peak, _ = check_nlms(torch, nk, r, v, flen, mu,
+                                      zero_window="nan", return_filter=True)
+            p_ms = cuda_ms(torch, lambda: nk.nlms_filter_batch(
+                ref, srv, flen, mu), 3, warmup=1)
+        table[str(lib.nlms_block_steps())] = dict(
+            kernel_ms=p_ms, ns_per_step=p_ms * 1e6 / steps, rel_err=err / peak)
+    del r, v, ref, srv
+
     row = dict(name="nlms_filter_pallas", route="cuda",
                source="passiveradar_torch/csrc/nlms.cu",
                replaces="passiveradar_tpu/ops/nlms_pallas.py:157",
                launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    emit(dict(phase="kernels_nlms", checks=dict(F=f, n=n, m=m, tol=NLMS_TOL,
-                                                **checks),
+    emit(dict(phase="kernels_nlms", block_steps=p_block,
+              checks=dict(F=f, n=n, edge_n=NLMS_EDGE_N, m=m, tol=NLMS_TOL,
+                          **checks),
               kernel_ms_at_check_n=check_ms, plain_ms_at_check_n=plain_ms,
               shape=dict(F=f, N=big_n, m=m, steps=steps), kernel_ms=ms,
               ns_per_step=ms * 1e6 / steps, flops=flops, bytes=nbytes,
@@ -408,7 +463,8 @@ def phase_nlms_kernels(torch, dev):
               bench_nlms_shape=dict(B=bb, N=bn, m=bm, ms=bench_ms,
                                     ns_per_step=bench_ms * 1e6 / (bn - bm),
                                     gflops_per_s=bench_flops / bench_ms
-                                    / 1e6)))
+                                    / 1e6),
+              block_table=table))
     return row
 
 
@@ -1187,13 +1243,18 @@ def main() -> int:
               device=torch.cuda.get_device_name(0),
               device_count=torch.cuda.device_count(), nvidia_smi=card))
 
-    built = cuda_build.build(force=True)
+    other_block = {"NLMS_BLOCK": NLMS_OTHER_BLOCK}
+    built = cuda_build.build(force=True, variants=(("nlms", other_block),))
     for name, b in built.items():
-        emit(dict(phase="build", source=f"passiveradar_torch/csrc/{name}.cu",
+        emit(dict(phase="build", library=name,
+                  source=f"passiveradar_torch/csrc/{name.split('-')[0]}.cu",
                   seconds=b["seconds"], ptxas=ptxas_summary(b["log"])))
+    from passiveradar_torch.ops import nlms_kernel as nk
+    other_block_lib = nk.bind(ctypes.CDLL(cuda_build.library_path(
+        "nlms", other_block)))
 
     row = phase_kernels(torch, dev)
-    row_nlms = phase_nlms_kernels(torch, dev)
+    row_nlms = phase_nlms_kernels(torch, dev, other_block_lib)
     row_fft = phase_fft_kernels(torch, dev)
     phase_chain_parity(torch, dev)
     phase_nlms_chain_parity(torch, dev)

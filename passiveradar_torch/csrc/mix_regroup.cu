@@ -155,25 +155,36 @@ cudaError_t launch(const float* x, const float* bank_packed, float* out, int F,
 extern "C" {
 
 // x: (F, n, 2) float32; bank_packed: (W, UP rounded to even, 2) float32;
-// out: (F, groups, UP, 2) float32. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() of the launch.
+// out: (F, groups, UP, 2) float32; the pointers and the stream on card
+// `device`, which the call makes current for the launch and then restores.
+// Launches on `stream`, does not synchronise, and returns the first CUDA
+// error that is not 0.
 int mix_regroup_launch(const float* x, const float* bank_packed, float* out,
                        int F, int n, int W, int down, int groups, int up,
-                       int pad_left, void* stream) {
-  if (F <= 0 || groups <= 0 || F > 65535) return (int)cudaErrorInvalidValue;
+                       int pad_left, int device, void* stream) {
+  if (F <= 0 || groups <= 0 || F > 65535 || up < 1 || up > 20 || device < 0)
+    return (int)cudaErrorInvalidValue;
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (up) {
 #define PR_CASE(U) \
   case U:          \
-    return (int)launch<U>(x, bank_packed, out, F, n, W, down, groups, pad_left, s);
+    err = launch<U>(x, bank_packed, out, F, n, W, down, groups, pad_left, s); \
+    break;
     PR_CASE(1) PR_CASE(2) PR_CASE(3) PR_CASE(4) PR_CASE(5)
     PR_CASE(6) PR_CASE(7) PR_CASE(8) PR_CASE(9) PR_CASE(10)
     PR_CASE(11) PR_CASE(12) PR_CASE(13) PR_CASE(14) PR_CASE(15)
     PR_CASE(16) PR_CASE(17) PR_CASE(18) PR_CASE(19) PR_CASE(20)
 #undef PR_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
   }
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 const char* mix_regroup_error_string(int err) {

@@ -4,7 +4,9 @@ Each source is compiled by nvcc for sm_90a into its own shared library with
 a plain C interface, ``csrc/build/lib<name>.so``, and bound with ctypes. A
 library is built at first use, or again when its source is newer; ``build``
 starts every nvcc it needs at once and waits for all of them, so building
-the whole set takes as long as the slowest source.
+the whole set takes as long as the slowest source. A variant is a source
+built with preprocessor defines into a library of its own,
+``lib<name>-<DEFINE><value>.so``, for measurements that compare builds.
 """
 
 from __future__ import annotations
@@ -27,8 +29,13 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
-def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+def _stem(name: str, defines=None) -> str:
+    return name + "".join(f"-{k}{v}"
+                          for k, v in sorted((defines or {}).items()))
+
+
+def library_path(name: str, defines=None) -> str:
+    return os.path.join(BUILD_DIR, f"lib{_stem(name, defines)}.so")
 
 
 def _nvcc() -> str:
@@ -46,20 +53,22 @@ def _up_to_date(name: str) -> bool:
             and os.path.getmtime(lib) >= os.path.getmtime(source_path(name)))
 
 
-def build(names=SOURCES, force: bool = False) -> dict:
-    """Compile the named sources for sm_90a, all nvcc processes at once.
+def build(names=SOURCES, force: bool = False, variants=()) -> dict:
+    """Compile the named sources, and the ``variants`` ((name, {define:
+    value}) pairs), for sm_90a, all nvcc processes at once.
 
-    Returns {name: {"path", "seconds", "log"}}; ``log`` holds ptxas'
-    register, spill and shared-memory report. Raises RuntimeError naming
-    every source that failed to compile.
+    Returns {stem: {"path", "seconds", "log"}}, the stem being the name or
+    ``<name>-<DEFINE><value>``; ``log`` holds ptxas' register, spill and
+    shared-memory report. Raises RuntimeError naming every source that
+    failed to compile.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
     jobs, result = {}, {}
-    for name in names:
-        if not force and _up_to_date(name):
-            result[name] = dict(path=library_path(name), seconds=0.0,
-                                log="(up to date)")
+    for name, defines in [(n, None) for n in names] + list(variants):
+        stem, lib = _stem(name, defines), library_path(name, defines)
+        if not force and defines is None and _up_to_date(name):
+            result[stem] = dict(path=lib, seconds=0.0, log="(up to date)")
             continue
         nvcc = nvcc or _nvcc()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -67,19 +76,20 @@ def build(names=SOURCES, force: bool = False) -> dict:
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", tmp, source_path(name)]
+        cmd[1:1] = [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
-        jobs[name] = (proc, tmp, time.perf_counter())
+        jobs[stem] = (proc, tmp, lib, time.perf_counter())
     failed = []
-    for name, (proc, tmp, t0) in jobs.items():
+    for stem, (proc, tmp, lib, t0) in jobs.items():
         _, err = proc.communicate()
         dt = time.perf_counter() - t0
         if proc.returncode != 0:
             os.remove(tmp)
-            failed.append(f"{name}.cu (nvcc {proc.returncode}):\n{err}")
+            failed.append(f"{stem} (nvcc {proc.returncode}):\n{err}")
             continue
-        os.replace(tmp, library_path(name))
-        result[name] = dict(path=library_path(name), seconds=dt, log=err)
+        os.replace(tmp, lib)
+        result[stem] = dict(path=lib, seconds=dt, log=err)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return result

@@ -23,13 +23,17 @@ length is its length less ``peek``, as in the scan. The TPU kernel's
 counterpart here.
 
 Kernel (``csrc/nlms.cu``, CUDA C++ for sm_90a, built by
-``ops/cuda_build.py`` and bound with ctypes): one warp per frame, taps in
-registers, the window read from shared memory each step, a warp
-all-reduce per step; its note says what bounds it. On a CPU tensor the
-wrapper runs ``nlms_filter_batch_plain``, a loop over the steps vectorised
-over frames, in complex64; on a CUDA tensor it always launches the kernel
-and raises if the build or the launch fails. ``nlms_filter_batch.launches``
-counts kernel launches.
+``ops/cuda_build.py`` and bound with ctypes): the exact block form of the
+recurrence, one CTA of 8 warps per frame. For each block of P steps the
+helper warps build the block's Gram u_iᴴu_j and the step sizes from ref
+alone (during the previous block's solve), all warps take the P dot
+products w₀ᴴu_j, one warp solves the P-step triangular recurrence with a
+shuffle broadcast a step, and all warps apply the rank-P tap update; its
+note says what bounds it and how zero windows are kept exact. On a CPU
+tensor the wrapper runs ``nlms_filter_batch_plain``, a loop over the steps
+vectorised over frames, in complex64; on a CUDA tensor it always launches
+the kernel, on the tensor's card, and raises if the build or the launch
+fails. ``nlms_filter_batch.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -41,21 +45,28 @@ import torch
 
 from passiveradar_torch.ops import cuda_build
 
-MAX_TAPS = 512       # m = filter_len + peek: 16 taps per lane of one warp
+MAX_TAPS = 512       # m = filter_len + peek: 2 taps a thread in the update
 ZERO_WINDOWS = ("zero", "nan")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a library built from ``csrc/nlms.cu``."""
+    lib.nlms_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.nlms_launch.restype = ctypes.c_int
+    lib.nlms_block_steps.argtypes = []
+    lib.nlms_block_steps.restype = ctypes.c_int
+    lib.nlms_error_string.argtypes = [ctypes.c_int]
+    lib.nlms_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("nlms")
-    lib.nlms_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.nlms_launch.restype = ctypes.c_int
-    lib.nlms_error_string.argtypes = [ctypes.c_int]
-    lib.nlms_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(cuda_build.load("nlms"))
 
 
 def _prepare(ref, srv, filter_len, peek, initial_taps, zero_window):
@@ -159,7 +170,8 @@ def nlms_filter_batch(ref: torch.Tensor, srv: torch.Tensor, filter_len: int,
                           None if w0 is None else w0.data_ptr(),
                           out.data_ptr(), None if w is None else w.data_ptr(),
                           b, n, filter_len, m, float(mu),
-                          int(zero_window == "nan"), stream)
+                          int(zero_window == "nan"), ref.get_device(),
+                          stream)
     if err != 0:
         raise RuntimeError("nlms kernel launch failed: "
                            + lib.nlms_error_string(err).decode())

@@ -57,7 +57,8 @@ def _library() -> ctypes.CDLL:
     lib.mix_regroup_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.mix_regroup_launch.restype = ctypes.c_int
     lib.mix_regroup_error_string.argtypes = [ctypes.c_int]
     lib.mix_regroup_error_string.restype = ctypes.c_char_p
@@ -129,7 +130,7 @@ def mix_regroup_matmul(x: torch.Tensor, bank: torch.Tensor, down: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mix_regroup_launch(x.data_ptr(), bank.data_ptr(), out.data_ptr(),
                                  f, n, bank.shape[0], down, groups, up,
-                                 pad_left, stream)
+                                 pad_left, x.get_device(), stream)
     if err != 0:
         raise RuntimeError("mix_regroup kernel launch failed: "
                            + lib.mix_regroup_error_string(err).decode())

@@ -109,6 +109,65 @@ def test_nlms_kernel_matches_plain(cuda, flen, peek, zero_window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("zero_window", ["zero", "nan"])
+@pytest.mark.parametrize("where,flen", [("block_edge", 175), ("mid_block", 175),
+                                        ("block_edge", 23), ("mid_block", 502)])
+def test_nlms_kernel_block_edges_match_plain(cuda, where, flen, zero_window):
+    """The block form's edges: a zero run whose first all-zero window is a
+    block's first step or a step inside a block, 4,003 samples (steps no
+    multiple of the block), m = 33, 185 and 512."""
+    m = flen + 10
+    n = 4003
+    p_block = nk._library().nlms_block_steps()
+    start = 5 * p_block + (1 if where == "block_edge" else 14)
+    gen = torch.Generator(device=cuda).manual_seed(start + flen)
+    ref = torch.randn((3, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    ref[1, start:start + m + 50] = 0      # first zero window: step start-1
+    srv = 0.5 * torch.roll(ref, 3, dims=1) + 0.1 * torch.randn(
+        (3, n), dtype=torch.complex64, generator=gen, device=cuda)
+    assert (n - m) % p_block != 0
+    got, gtaps = nk.nlms_filter_batch(ref, srv, flen, 0.05,
+                                      return_filter=True,
+                                      zero_window=zero_window)
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, flen, 0.05,
+                                             return_filter=True,
+                                             zero_window=zero_window)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+    if zero_window == "nan":
+        first = flen + start - 1          # the first zero window's output
+        assert torch.isfinite(got[1, :first + 1]).all()
+        assert torch.isnan(got[1, first + 1:n - 10]).all()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_card(cuda):
+    """Inputs on card 1 while card 0 is current: both kernels launch there,
+    agree with their plain versions and leave card 0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    one = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device=one).manual_seed(11)
+    ref = torch.randn((2, 3000), dtype=torch.complex64, generator=gen,
+                      device=one)
+    srv = 0.5 * torch.roll(ref, 3, dims=1)
+    got = nk.nlms_filter_batch(ref, srv, 175, 0.05)
+    want = nk.nlms_filter_batch_plain(ref, srv, 175, 0.05)
+    x = torch.randn((2, 17 * 150 + 7, 2), generator=gen, device=one)
+    bank = rk.pack_bank(torch.randn((6, 51), generator=gen, device=one), 3)
+    got_r = rk.mix_regroup_matmul(x, bank, 17, 140, 3, 9)
+    want_r = rk.mix_regroup_matmul_plain(x, bank, 17, 140, 3, 9)
+    torch.cuda.synchronize(one)
+    assert torch.cuda.current_device() == 0
+    _assert_nlms_agree(got, want)
+    assert (got_r - want_r).abs().max().item() <= \
+        2e-6 * want_r.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_nlms_kernel_warm_start_matches_plain(cuda):
     ref, srv = _nlms_inputs(cuda, 2, 2000, 40, 7)
     _, taps = nk.nlms_filter_batch(ref[:, :900], srv[:, :900], 30, 0.1,

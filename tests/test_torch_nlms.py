@@ -31,6 +31,68 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+def _block_nlms(ref, srv, filter_len, mu, peek=10, block=32,
+                zero_window="zero", initial_taps=None):
+    """One frame through the kernel's block algebra, in float32 (see the
+    module docstring); returns (out, taps in the reference orientation)."""
+    ref = np.asarray(ref, np.complex64)
+    srv = np.asarray(srv, np.complex64)
+    n = ref.shape[0]
+    if initial_taps is not None:
+        w = np.flip(np.asarray(initial_taps, np.complex64)).copy()
+        filter_len = w.shape[0] - peek
+    m = filter_len + peek
+    if initial_taps is None:
+        w = np.zeros(m, np.complex64)
+    steps = n - m
+    mu = np.float32(mu)
+    pb = min(block, m)              # segments of pb positions, q >= 1 below
+    nq = m // pb
+    # positions past the end read as zeros, as the kernel stages them
+    padded = np.concatenate([ref, np.zeros(pb * (nq + 3) + block,
+                                           np.complex64)])
+    out = np.zeros(n, np.complex64)
+    for k0 in range(0, steps, pb):
+        t_len = min(pb, steps - k0)
+        # segment k (k = 0 is the block's own) = positions
+        # a + k*pb .. a + (k+1)*pb - 1; window i = [a + i, a + i + m)
+        a = k0 + 1
+        x = padded[a:a + pb * (nq + 2) + block]
+        g = np.zeros((t_len, t_len), np.complex64)
+        for lag in range(t_len):
+            if lag == 0:            # |r|² alone: a zero window sums to 0
+                p = (x.real * x.real + x.imag * x.imag).astype(np.complex64)
+            else:
+                p = np.conj(x[:-lag]) * x[lag:]
+            seg = p[:pb * (nq + 2)].reshape(nq + 2, pb)
+            prefix = np.concatenate([np.zeros((nq + 2, 1), np.complex64),
+                                     np.cumsum(seg, axis=1)], axis=1)
+            suffix = np.cumsum(seg[0, ::-1])[::-1]
+            for i in range(t_len - lag):
+                q, o = divmod(i + m, pb)
+                middle = np.complex64(0)
+                for k in range(1, q):
+                    middle = middle + prefix[k, pb]
+                g[i, i + lag] = (suffix[i] + middle) + prefix[q, o]
+        uu = g.diagonal().real.copy()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            if zero_window == "zero":
+                s = np.where(uu == 0, np.float32(0),
+                             mu / np.maximum(uu, np.float32(1e-30)))
+            else:
+                s = np.where(uu == 0, np.float32(np.nan), mu / uu)
+        s = s.astype(np.float32)
+        gs = np.triu(s[:, None] * g, 1)
+        u = ref[a + np.arange(t_len)[:, None] + np.arange(m)]   # (T, m)
+        e = srv[k0 + filter_len:k0 + filter_len + t_len] - u @ np.conj(w)
+        for i in range(t_len - 1):
+            e[i + 1:] -= e[i] * gs[i, i + 1:]
+        out[filter_len + k0:filter_len + k0 + t_len] = e
+        q = (s * np.conj(e)).astype(np.complex64)
+        w = w + (q[:, None] * u).sum(0, dtype=np.complex64)
+    return out, np.flip(w)
+
+
 def _assert_close(got, want):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
@@ -43,6 +105,8 @@ def _assert_same_nans(got, want):
     got, want = np.asarray(got), np.asarray(want)
     mask = np.isnan(want)
     np.testing.assert_array_equal(np.isnan(got), mask)
+    if mask.all():
+        return
     assert np.all(np.isfinite(got[~mask]))
     assert np.max(np.abs(got[~mask] - want[~mask])) <= \
         TOL * np.max(np.abs(want[~mask]))
@@ -220,3 +284,107 @@ def test_batch_rejects_bad_arguments(rng, kwargs, match):
     args.update(kwargs)
     with pytest.raises(ValueError, match=match):
         nk.nlms_filter_batch(x, x, **args)
+
+
+def _zero_run(ref, start, length):
+    """ref with a zero run: the first all-zero window is step start - 1."""
+    ref = ref.copy()
+    ref[start:start + length] = 0
+    return ref
+
+
+@pytest.mark.parametrize("n,flen,peek,zero_at,zero_window", [
+    (1000, 23, 10, None, "zero"),       # m = 33; 967 steps = 30 blocks + 7
+    (3000, 175, 10, None, "nan"),       # m = 185, the FM taps; ragged tail
+    (1500, 23, 10, 32 * 20 + 1, "zero"),    # zero run from a block's edge
+    (1500, 23, 10, 32 * 20 + 1, "nan"),
+    (1500, 23, 10, 32 * 20 + 14, "zero"),   # zero run from mid-block
+    (1500, 23, 10, 32 * 20 + 14, "nan"),
+    (4000, 175, 10, 32 * 60 + 1, "nan"),
+    (4000, 175, 10, 32 * 60 + 19, "zero"),
+    # m = 1: blocks of pb = min(P, m) = 1 step, Q = 1
+    (600, 1, 0, None, "zero"),
+])
+def test_block_model_matches_scan_and_plain(rng, n, flen, peek, zero_at,
+                                            zero_window):
+    """The kernel's block algebra against the JAX scan and the port's plain
+    version: within TOL with equal NaN masks. Under 'zero' a zero run
+    leaves the taps alone and the scan's NaN does not apply, so there the
+    scan is held only up to the first zero window."""
+    ref = _cnoise(rng, n)
+    m = flen + peek
+    if zero_at is not None:
+        ref = _zero_run(ref, zero_at, m + 60)
+    srv = (0.5 * np.roll(ref, 3) + 0.01 * np.flip(ref)
+           + 0.1 * _cnoise(rng, n)).astype(np.complex64)
+    mu = 0.05
+    got, gtaps = _block_nlms(ref, srv, flen, mu, peek=peek,
+                             zero_window=zero_window)
+    want, wtaps = nk.nlms_filter_batch_plain(_t(ref), _t(srv), flen, mu,
+                                             peek=peek, return_filter=True,
+                                             zero_window=zero_window)
+    _assert_same_nans(got, want.numpy())
+    if zero_window == "nan" or zero_at is None:
+        _assert_same_nans(gtaps, wtaps.numpy())
+    jw = np.asarray(j_nlms(ref, srv, flen, mu, peek=peek))
+    if zero_window == "nan" or zero_at is None:
+        _assert_same_nans(got, jw)
+    else:
+        first = flen + zero_at - 1            # output of the first zero window
+        assert np.isnan(jw[first + 1:n - peek]).all()
+        assert np.isfinite(got).all()
+        _assert_same_nans(got[:first + 1], jw[:first + 1])
+        _assert_close(gtaps, wtaps.numpy())
+    if zero_at is not None and zero_window == "nan":
+        first = flen + zero_at - 1
+        assert np.isfinite(got[:first + 1]).all()
+        assert np.isnan(got[first + 1:n - peek]).all()
+
+
+def test_block_model_warm_start_matches_scan_and_plain(rng):
+    """The warm start with return_filter: taps of a first pass fed back as
+    initial_taps, through the block algebra, the scan and the plain
+    version."""
+    n, flen, peek, mu = 2500, 175, 10, 0.05
+    ref = _cnoise(rng, n)
+    srv = (0.6 * np.roll(ref, 5) + 0.1 * _cnoise(rng, n)).astype(np.complex64)
+    _, taps = j_nlms(ref[:1200], srv[:1200], flen, mu, peek=peek,
+                     return_filter=True)
+    taps = np.asarray(taps)
+    got, gtaps = _block_nlms(ref, srv, 0, mu, peek=peek, initial_taps=taps)
+    want, wtaps = j_nlms(ref, srv, flen, mu, peek=peek, initial_taps=taps,
+                         return_filter=True)
+    _assert_close(got, want)
+    _assert_close(gtaps, wtaps)
+    pw, ptaps = nk.nlms_filter_batch_plain(_t(ref), _t(srv), 0, mu, peek=peek,
+                                           initial_taps=_t(taps),
+                                           return_filter=True)
+    _assert_close(got, pw.numpy())
+    _assert_close(gtaps, ptaps.numpy())
+
+
+def test_block_gram_sums_only_window_terms(rng):
+    """At the edge of a zero run a window holds a few samples; its Gram
+    entries, summed as suffix + whole segments + prefix, keep their error
+    relative to |u_i||u_j| (float64 direct sums as the truth)."""
+    m, pb = 33, 32
+    ref = _cnoise(rng, 200)
+    ref[40:] = 0
+    ref[39] *= 1e-3                 # the last window before the run: tiny
+    a = 10                          # windows 29..31 hold one or no sample
+    x = ref[a:a + 3 * pb + pb]
+    x64 = x.astype(np.complex128)
+    for lag in range(1, pb):
+        p = np.conj(x[:-lag]) * x[lag:]
+        seg = p[:3 * pb].reshape(3, pb)
+        prefix = np.concatenate([np.zeros((3, 1), np.complex64),
+                                 np.cumsum(seg, axis=1)], axis=1)
+        suffix = np.cumsum(seg[0, ::-1])[::-1]
+        for i in range(pb - lag):
+            q, o = divmod(i + m, pb)
+            middle = sum(prefix[k, pb] for k in range(1, q))
+            got = (suffix[i] + middle) + prefix[q, o]
+            exact = np.vdot(x64[i:i + m], x64[i + lag:i + lag + m])
+            scale = (np.linalg.norm(x64[i:i + m])
+                     * np.linalg.norm(x64[i + lag:i + lag + m]))
+            assert abs(got - exact) <= 1e-5 * scale
