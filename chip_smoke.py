@@ -6,11 +6,15 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: every csrc/*.cu for sm_90a, and csrc/nlms.cu again at the block
-   length NLMS_OTHER_BLOCK, one nvcc each, all started at once, from the
-   checkout, with ptxas' registers and spills;
+2. build: every csrc/*.cu for sm_90a, csrc/nlms.cu again at the block
+   length NLMS_OTHER_BLOCK and csrc/mix_regroup.cu again at each setting of
+   MR_VARIANTS, one nvcc each, all started at once, from the checkout, with
+   ptxas' registers and spills;
 3. kernels: every CUDA kernel against its plain torch version on the card,
-   at the FM shapes and at ragged small ones (the NLMS kernel in both
+   at the FM shapes and at ragged small ones (the resampler also on the FM
+   bank with zeroed bands, timed at the FM and push shapes, without its
+   phase skip and on the complex taps, with its config table of
+   MR_VARIANTS builds; the NLMS kernel in both
    zero-window semantics, with a zero run, a ragged tap count, a warm
    start, zero runs from a block's edge and from mid-block, steps no
    multiple of the block and 512 taps; the fused FFT at every supported
@@ -41,7 +45,8 @@ Phases, one JSON line each; any failure exits non-zero:
 6. steady state, for the LS canceller and for ``nlms_pallas``:
    ``process_frames`` on one device-resident FM batch, per stage, with peak
    device memory; then one batch under torch.profiler (kernel launches,
-   device busy and idle share, the heaviest kernels); then the LS batch on
+   device busy and idle share, the heaviest kernels) and the preprocess
+   stage alone (every kernel by name); then the LS batch on
    cuFFT and on the fused FFT in turns, and one profiled fused batch.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
@@ -104,6 +109,14 @@ NLMS_EDGE_N = 4096       # length of the block-edge checks: steps % P == 7
 NLMS_OTHER_BLOCK = 64    # csrc/nlms.cu's P table: this against the default
 NLMS_BENCH = dict(B=128, N=262144, filter_len=175, peek=10)  # bench_nlms.py
 FFT_BENCH = (8, 262144)  # bench_fft_fused.py
+# csrc/mix_regroup.cu's config table: its defaults, and the builds timed
+# against them (groups a thread, warps a CTA, columns a chunk, span buffers
+# a CTA, CTAs an SM its registers are capped for)
+MR_DEFAULTS = dict(MR_GT=2, MR_KSPLIT=8, MR_CHUNK=8, MR_NBUF=1, MR_MINB=2)
+MR_VARIANTS = ({"MR_NBUF": 2, "MR_MINB": 1},
+               {"MR_GT": 3, "MR_NBUF": 2, "MR_MINB": 1},
+               {"MR_GT": 1, "MR_NBUF": 2}, {"MR_KSPLIT": 4},
+               {"MR_CHUNK": 4}, {"MR_CHUNK": 16, "MR_MINB": 1})
 STREAM_TOL = 1e-3        # streamed CAF vs process_frames, over the map peak
 FUSED_FFT_ENV = "PASSIVERADAR_PALLAS_FFT"
 # LS maps on the fused FFT vs the float64-FFT route, over the cuFFT route's
@@ -122,13 +135,19 @@ def smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() on the card, from CUDA events."""
+def cuda_ms(torch, fn, iters: int, warmup: int = 2,
+            queue: bool = False) -> float:
+    """Mean milliseconds of fn() on the card, from CUDA events. With
+    ``queue`` the card first sleeps ~2.5 ms, so that the host has enqueued
+    the calls before they run and a call shorter than its own enqueue is
+    timed on the card, not on the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -139,7 +158,7 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled one: _ZN<n><namespace><n><name>...,
-    with the template argument of ILi<k>E as <k>."""
+    with the template arguments I Li<k>E [Lb<0|1>E] E as <k[, bool]>."""
     import re
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
@@ -150,8 +169,12 @@ def kernel_name(mangled: str) -> str:
         return mangled
     i += m.end()
     name = mangled[i:i + int(m.group(1))]
-    t = re.match(r"ILi(\d+)E", mangled[i + len(name):])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i + len(name):])
+    if not t:
+        return name
+    flag = "" if t.group(2) is None else \
+        (", true" if t.group(2) == "1" else ", false")
+    return f"{name}<{t.group(1)}{flag}>"
 
 
 def ptxas_summary(log: str) -> list:
@@ -191,7 +214,28 @@ def check_regroup(torch, rk, x, bank, down, groups, up, pad_left):
     return err, peak
 
 
-def phase_kernels(torch, dev):
+def zero_band_bank(bank_ri, up):
+    """The FM bank with zeroed bands: an interior run of all-zero columns
+    (whole chunks with no nonzero tap) and one phase that is all zero."""
+    b = bank_ri.copy()
+    b[:, 96:144] = 0
+    b[up // 2] = b[up + up // 2] = 0
+    return b
+
+
+def regroup_launch_info(lib) -> dict:
+    info = (ctypes.c_int * 4)()
+    lib.mix_regroup_last_launch(info)
+    return dict(grid=info[0], ctas_per_sm=info[1], smem_bytes=info[2],
+                groups_an_item=info[3])
+
+
+def phase_kernels(torch, dev, variant_libs):
+    """The resampler kernel against its plain version at the FM shape, on a
+    ragged small geometry and on the FM bank with zeroed bands; timed at the
+    FM shape (and without its phase skip) and at a push's shape (F = 1),
+    beside the plain version and one library call; then the config table:
+    each build of ``variant_libs`` checked and timed at both shapes."""
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.ops import fir
     from passiveradar_torch.ops import resample_kernel as rk
@@ -207,12 +251,15 @@ def phase_kernels(torch, dev):
     groups, pad = st["groups"], st["pad_l"] + st["ext"]
     bank_ri = st["bank_ri"]
     bank = rk.pack_bank(torch.from_numpy(bank_ri).to(dev), up)
-    w = bank.shape[0]
+    w = bank.taps.shape[1]
     # complex taps the function needs: the nonzero entries of the bank
     taps = int(np.count_nonzero((bank_ri[:up] != 0) | (bank_ri[up:] != 0)))
+    ph = bank.phases.cpu().numpy()
+    macs_run = int(np.maximum(0, ph[:, 1] - ph[:, 0] + 1).sum()) * bank.chunk
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((f, n, 2), generator=gen, device=dev)
     err, peak = check_regroup(torch, rk, x, bank, down, groups, up, pad)
+    launch = regroup_launch_info(rk._library())
 
     # ragged small geometry: groups no multiple of the 64-group tile
     up2, down2, n2, f2 = 3, 17, 17 * 140 + 5, 3
@@ -221,59 +268,105 @@ def phase_kernels(torch, dev):
     x2 = torch.randn((f2, n2, 2), generator=gen, device=dev)
     groups2 = (n2 + 9 - 3 * down2) // down2 + 2
     err2, peak2 = check_regroup(torch, rk, x2, bank2, down2, groups2, up2, 9)
+    # the FM bank with zeroed bands: empty chunks inside the run
+    band = rk.pack_bank(torch.from_numpy(zero_band_bank(bank_ri, up)).to(dev),
+                        up)
+    err3, peak3 = check_regroup(torch, rk, x, band, down, groups, up, pad)
+    band_ph = band.phases.cpu().numpy()
 
     # the same function as one library call: unfold + complex einsum
-    bank_c = torch.view_as_complex(bank)[:, :up]
+    bank_c = torch.view_as_complex(bank.taps)
 
     def library():
         xc = torch.view_as_complex(x)
         total = (groups - 1) * down + w
         xp = torch.nn.functional.pad(xc, (pad, max(0, total - n - pad)))
         win = xp[:, :total].unfold(-1, w, down)
-        return torch.einsum("fgc,cp->fgp", win, bank_c)
+        return torch.einsum("fgc,pc->fgp", win, bank_c)
 
     lib_out = library()
     plain = rk.mix_regroup_matmul_plain(x, bank, down, groups, up, pad)
     lib_err = (lib_out - plain).abs().max().item()
     del lib_out, plain
 
-    ms = cuda_ms(torch, lambda: rk.mix_regroup_matmul(x, bank, down, groups,
-                                                      up, pad), 20)
+    x1 = x[:1].clone()                 # a stream push: one frame
+
+    def timed(b, xx=x):
+        return cuda_ms(torch, lambda: rk.mix_regroup_matmul(
+            xx, b, down, groups, up, pad), 20, queue=True)
+
+    ms = timed(bank)
+    push_ms = timed(bank, x1)
     plain_ms = cuda_ms(torch, lambda: rk.mix_regroup_matmul_plain(
         x, bank, down, groups, up, pad), 5)
     library_ms = cuda_ms(torch, library, 5)
-    # the same kernel with the bank at the TPU's slab-rounded width, the
-    # trailing zero columns kept: what the cut in pack_bank saves
-    full = torch.zeros((bank_ri.shape[1],) + tuple(bank.shape[1:]),
-                       device=dev)
-    full[:w] = bank
-    full_ms = cuda_ms(torch, lambda: rk.mix_regroup_matmul(
-        x, full, down, groups, up, pad), 20)
-    del full
-    nbytes = x.numel() * 4 + bank.numel() * 4 + f * groups * up * 8
+    # the same kernel with every phase marked live in every chunk (what the
+    # skip saves), and on the complex taps, the bank's factors left out
+    dense = bank._replace(phases=torch.tensor(
+        [[0, up - 1]] * bank.phases.shape[0], dtype=torch.int32, device=dev))
+    no_skip_ms = timed(dense)
+    complex_ms = timed(bank._replace(real=None, phasor=None))
+
+    # the config table: each build, checked at the FM shape, timed at the FM
+    # and push shapes
+    table = []
+    for label, lib in variant_libs:
+        vb = rk.pack_bank(torch.from_numpy(bank_ri).to(dev), up,
+                          chunk=lib.mix_regroup_chunk())
+        vph = vb.phases.cpu().numpy()
+        with mock.patch.object(rk, "_library", return_value=lib):
+            verr, _ = check_regroup(torch, rk, x, vb, down, groups, up, pad)
+            info = regroup_launch_info(lib)
+            table.append(dict(
+                label, **info, rel_err=verr / peak, ms=timed(vb),
+                push_ms=timed(vb, x1),
+                macs_per_group=int(np.maximum(0, vph[:, 1] - vph[:, 0] + 1)
+                                   .sum()) * vb.chunk))
+    del x1
+
+    factored = bank.real is not None
+    bank_bytes = sum(t.numel() * 4 for t in (bank.real, bank.phasor)) \
+        if factored else bank.taps.numel() * 4
+    nbytes = x.numel() * 4 + bank_bytes + f * groups * up * 8
     flops = 8.0 * f * groups * taps             # 4 FMAs per complex MAC
-    flops_run = 8.0 * f * groups * up * w       # zero taps included
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    # what the kernel runs on the table's live pairs: a complex MAC is 2
+    # FMAs on the factors (4 on complex taps), and each live column's sample
+    # is turned by its phasor once (2 multiplies and 2 FMAs)
+    cols_run = int((ph[:, 0] <= ph[:, 1]).sum()) * bank.chunk
+    flops_run = f * groups * (4.0 * macs_run + 6.0 * cols_run) if factored \
+        else 8.0 * f * groups * macs_run
+    bound_ms, bound_by = flops_bound(nbytes, flops)
+    push_bytes = n * 8 + bank_bytes + groups * up * 8
+    push_bound_ms, _ = flops_bound(push_bytes, 8.0 * groups * taps)
     row = dict(name="mix_regroup_matmul", route="cuda",
                source="passiveradar_torch/csrc/mix_regroup.cu",
                replaces="passiveradar_tpu/ops/resample_pallas.py:162",
                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               library_ms=library_ms)
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     emit(dict(phase="kernels", shape=dict(F=f, n=n, up=up, down=down, W=w,
                                           W_bank=bank_ri.shape[1],
                                           groups=groups, pad_left=pad),
-              max_abs_err=err, peak=peak, rel_err=err / peak,
+              launch=launch, max_abs_err=err, peak=peak, rel_err=err / peak,
               ragged=dict(F=f2, n=n2, up=up2, down=down2, groups=groups2,
                           max_abs_err=err2, rel_err=err2 / peak2),
-              library_max_abs_err=lib_err, kernel_ms=ms,
-              kernel_ms_full_width=full_ms, plain_ms=plain_ms,
+              zero_band=dict(empty_chunks=int((band_ph[:, 0] >
+                                               band_ph[:, 1]).sum()),
+                             max_abs_err=err3, rel_err=err3 / peak3),
+              factored=factored, library_max_abs_err=lib_err, kernel_ms=ms,
+              kernel_ms_no_skip=no_skip_ms, kernel_ms_complex_taps=complex_ms,
+              plain_ms=plain_ms,
               library_ms=library_ms, bytes=nbytes, taps=taps, flops=flops,
-              flops_run=flops_run, bound_bytes_ms=t_bytes,
-              bound_ops_ms=t_ops, bound_share=max(t_bytes, t_ops) / ms,
+              macs_per_group_run=macs_run, macs_per_group_dense=up * w,
+              columns_turned_per_group=cols_run if factored else 0,
+              flops_run=flops_run, bound_ms=bound_ms,
+              bound_bytes_ms=nbytes / PEAK_BYTES * 1e3,
+              bound_ops_ms=flops / PEAK_FP32 * 1e3,
+              bound_share=bound_ms / ms,
               achieved_gbytes_per_s=nbytes / ms / 1e6,
-              run_tflops=flops_run / ms / 1e9))
+              run_tflops=flops_run / ms / 1e9,
+              push=dict(F=1, kernel_ms=push_ms, bound_ms=push_bound_ms,
+                        bound_share=push_bound_ms / push_ms),
+              config_table=table))
     return row
 
 
@@ -1178,26 +1271,24 @@ def phase_steady(torch, dev, cfg):
     profile_batch(torch, pl, ref, srv, ph, cfg)
 
 
-def profile_batch(torch, pl, ref, srv, ph, cfg):
-    """One traced batch: device kernels launched, their busy time over the
-    span from the first kernel's start to the last one's end (the idle
-    share is the rest), and the kernels that take the most device time."""
+def trace(torch, fn) -> dict:
+    """fn() once under torch.profiler: the host wall time to its end, the
+    device kernels launched, their busy time over the span from the first
+    kernel's start to the last one's end (the idle share is the rest), and
+    the kernels by name, heaviest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pl._process_frames_impl(ref, srv, ph, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        emit(dict(phase="profile", clutter_method=cfg.clutter_method,
-                  fused_fft=bool(os.environ.get(FUSED_FFT_ENV)),
-                  traced_wall_ms=wall_ms, kernels=0,
-                  note="the profiler recorded no device activity"))
-        return
+        return dict(traced_wall_ms=wall_ms, kernels=0,
+                    note="the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -1212,14 +1303,31 @@ def profile_batch(torch, pl, ref, srv, ph, cfg):
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(traced_wall_ms=wall_ms, kernels=len(kernels),
+                device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
+                idle_share=1.0 - busy / span,
+                by_name=[dict(name=k[:80], ms=t / 1e3, launches=c)
+                         for k, (t, c) in sorted(by_name.items(),
+                                                 key=lambda kv: -kv[1][0])])
+
+
+def profile_batch(torch, pl, ref, srv, ph, cfg):
+    """One traced batch (the heaviest kernels), then the preprocess stage
+    alone (both channels, every kernel)."""
+    t = trace(torch, lambda: pl._process_frames_impl(ref, srv, ph, cfg))
+    if "by_name" in t:
+        t["top"] = t.pop("by_name")[:8]
     emit(dict(phase="profile", clutter_method=cfg.clutter_method,
-              fused_fft=bool(os.environ.get(FUSED_FFT_ENV)),
-              traced_wall_ms=wall_ms, kernels=len(kernels),
-              device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
-              idle_share=1.0 - busy / span,
-              top=[dict(name=k[:80], ms=t / 1e3, launches=c)
-                   for k, (t, c) in top]))
+              fused_fft=bool(os.environ.get(FUSED_FFT_ENV)), **t))
+    from passiveradar_torch.ops import resample_kernel as rk
+    before = rk.mix_regroup_matmul.launches
+    t = trace(torch, lambda: (pl._preprocess_impl(ref, ph, cfg),
+                              pl._preprocess_impl(srv, ph, cfg)))
+    # the wrapper's count: the trace may record fewer of the ctypes launches
+    emit(dict(phase="profile_preprocess", clutter_method=cfg.clutter_method,
+              input_dtype=str(ref.dtype), shape=list(ref.shape),
+              mix_regroup_launches=rk.mix_regroup_matmul.launches - before,
+              **t))
 
 
 def main() -> int:
@@ -1244,7 +1352,9 @@ def main() -> int:
               device_count=torch.cuda.device_count(), nvidia_smi=card))
 
     other_block = {"NLMS_BLOCK": NLMS_OTHER_BLOCK}
-    built = cuda_build.build(force=True, variants=(("nlms", other_block),))
+    built = cuda_build.build(force=True, variants=(
+        ("nlms", other_block),
+        *(("mix_regroup", v) for v in MR_VARIANTS)))
     for name, b in built.items():
         emit(dict(phase="build", library=name,
                   source=f"passiveradar_torch/csrc/{name.split('-')[0]}.cu",
@@ -1253,7 +1363,12 @@ def main() -> int:
     other_block_lib = nk.bind(ctypes.CDLL(cuda_build.library_path(
         "nlms", other_block)))
 
-    row = phase_kernels(torch, dev)
+    from passiveradar_torch.ops import resample_kernel as rk
+    variant_libs = [(MR_DEFAULTS, rk._library())] + [
+        (dict(MR_DEFAULTS, **v), rk.bind(ctypes.CDLL(
+            cuda_build.library_path("mix_regroup", v)))) for v in MR_VARIANTS]
+
+    row = phase_kernels(torch, dev, variant_libs)
     row_nlms = phase_nlms_kernels(torch, dev, other_block_lib)
     row_fft = phase_fft_kernels(torch, dev)
     phase_chain_parity(torch, dev)

@@ -222,7 +222,8 @@ def _mix_resample_static(h_bytes: bytes, up: int, down: int, c: float,
 def _static_tensors(h_bytes: bytes, up: int, down: int, c: float, n_in: int,
                     mode: str, device: torch.device):
     """The device-resident operands of ``_mix_resample_static``, the bank
-    in the kernel's layout."""
+    packed for the kernel (``pack_bank``: its taps, phase table and real
+    factors)."""
     st = _mix_resample_static(h_bytes, up, down, c, n_in, mode)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     corr = None

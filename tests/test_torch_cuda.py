@@ -8,6 +8,8 @@ the fixture, at run time). On a machine with the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -56,11 +58,98 @@ def test_mix_regroup_kernel_matches_plain(cuda, up, down, frames):
     assert err <= 2e-6 * peak
 
 
+def _banded_bank(rng, up, w, band=(24, 48), dead_phase=None):
+    """A random (2·up, w) bank, each phase nonzero on its own run of columns,
+    with an interior band of all-zero columns and optionally a zero phase."""
+    bank = rng.standard_normal((2 * up, w)).astype(np.float32)
+    step = w // (2 * up)
+    run = w - (up - 1) * step
+    for p in range(up):
+        keep = np.zeros(w, bool)
+        keep[p * step:p * step + run] = True
+        bank[p, ~keep] = bank[up + p, ~keep] = 0
+    bank[:, band[0]:band[1]] = 0
+    if dead_phase is not None:
+        bank[dead_phase] = bank[up + dead_phase] = 0
+    return bank
+
+
+def _turned(rng, bank, up):
+    """The bank's real rows times one random unit phasor a column: a bank
+    that pack_bank factors, as it does the mixer's."""
+    turn = np.exp(2j * np.pi * rng.random(bank.shape[1]))
+    b = bank[:up] * turn
+    return np.concatenate([b.real, b.imag]).astype(np.float32)
+
+
+# (name, up, down, frames, bank kind, pad_left in units of down, group
+# count over the tiles the samples fill); a kind ending in "_fac" is a bank
+# that factors, which runs the kernel's real-tap path
+_REGROUP_CASES = [
+    ("zero_chunks", 13, 119, 3, "banded", 1, 3),
+    ("zero_chunks_fac", 13, 119, 3, "banded_fac", 1, 3),
+    ("no_zero_tap", 13, 119, 2, "dense", 2, 3),
+    ("no_zero_tap_fac", 13, 119, 2, "dense_fac", 2, 3),
+    ("push_F1", 13, 119, 1, "banded_fac", 3, 0),
+    ("ragged_tile", 3, 17, 5, "banded_fac", 1, 37),
+    ("pad_beyond_tile", 3, 17, 2, "dense", 70, 5),
+    ("up1", 1, 3, 3, "banded_fac", 1, 11),
+    ("up20", 20, 21, 2, "banded", 2, 29),
+    ("up20_fac", 20, 21, 2, "banded_fac", 2, 29),
+    ("narrow_tile", 3, 600, 2, "banded", 1, 5),
+    ("narrow_tile_fac", 3, 600, 2, "banded_fac", 1, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _REGROUP_CASES, ids=lambda c: c[0])
+def test_mix_regroup_kernel_cases(cuda, case):
+    """Kernel vs plain on banks with interior all-zero chunks and with no
+    zero tap, one frame, a ragged last tile, a left pad beyond the first
+    64-group tile, up = 1 and 20, and a span too wide for a 64-group item
+    (the kernel narrows it to 32); on complex taps and on factored banks."""
+    name, up, down, frames, kind, pad_downs, extra = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    w = max(40, 3 * down - 5)
+    bank = (_banded_bank(rng, up, w, band=(w // 3, w // 3 + 16),
+                         dead_phase=up // 2 if up > 2 else None)
+            if kind.startswith("banded") else
+            rng.standard_normal((2 * up, w)).astype(np.float32))
+    if kind.endswith("_fac"):
+        bank = _turned(rng, bank, up)
+    packed = rk.pack_bank(torch.from_numpy(bank).to(cuda), up)
+    assert (packed.real is not None) == kind.endswith("_fac")
+    ph = packed.phases.cpu().numpy()
+    if kind.startswith("banded"):
+        assert (ph[:, 0] > ph[:, 1]).any()         # an empty chunk inside
+    else:
+        assert (ph == [0, up - 1]).all()
+    n = down * 200 + 7
+    pad = pad_downs * down + 5
+    groups = (n + pad - w) // down + extra
+    if name == "ragged_tile":
+        assert groups % 64 != 0
+    x = torch.from_numpy(rng.standard_normal((frames, n, 2)).astype(
+        np.float32)).to(cuda)
+    before = rk.mix_regroup_matmul.launches
+    got = rk.mix_regroup_matmul(x, packed, down, groups, up, pad)
+    assert rk.mix_regroup_matmul.launches == before + 1
+    want = rk.mix_regroup_matmul_plain(x, packed, down, groups, up, pad)
+    torch.cuda.synchronize()
+    assert got.shape == (frames, groups, up)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-6 * want.abs().max().item()
+    info = (ctypes.c_int * 4)()
+    rk._library().mix_regroup_last_launch(info)
+    assert info[3] == (32 if name.startswith("narrow") else 64)
+
+
 @pytest.mark.cuda
 def test_mix_regroup_kernel_rejects_cpu_bank(cuda):
     x = torch.zeros((1, 100, 2), device=cuda)
     with pytest.raises(ValueError, match="same device"):
-        rk.mix_regroup_matmul(x, torch.zeros((9, 2, 2)), 3, 30, 1)
+        rk.mix_regroup_matmul(x, rk.pack_bank(torch.ones((2, 9)), 1), 3, 30,
+                              1)
 
 
 def _nlms_inputs(cuda, frames, n, m, seed):

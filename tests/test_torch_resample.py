@@ -19,7 +19,8 @@ from passiveradar_tpu.ops.resample_pallas import \
     mix_regroup_matmul as jax_mix_regroup  # noqa: E402
 from passiveradar_torch.ops import fir as tfir  # noqa: E402
 from passiveradar_torch.ops.resample_kernel import (  # noqa: E402
-    mix_regroup_matmul, mix_regroup_matmul_plain, pack_bank)
+    CHUNK, FACTOR_TOL, mix_regroup_matmul, mix_regroup_matmul_plain,
+    pack_bank)
 
 FC, FS = 100_000.0, 2_400_000.0
 
@@ -73,18 +74,184 @@ def test_mix_regroup_plain_rejects_bad_layout(rng):
 
 @pytest.mark.parametrize("mode", ["line", "constant"])
 def test_pack_bank_drops_only_zero_columns(mode):
-    """The packed FM bank holds every nonzero tap of ``bank_ri`` in
-    (column, phase) order and drops only trailing all-zero columns."""
+    """The packed FM bank holds every nonzero tap of ``bank_ri`` row by
+    phase and drops only trailing all-zero columns (the rest is padded with
+    zeros to a whole chunk)."""
     up = 13
     st = _fm_static(119 * 160, mode=mode)
     bank = st["bank_ri"]
-    packed = pack_bank(torch.from_numpy(bank), up).numpy()
-    w = packed.shape[0]
-    assert packed.shape == (w, up + 1, 2) and w < bank.shape[1]
+    packed = pack_bank(torch.from_numpy(bank), up)
+    taps = packed.taps.numpy()
+    w = int(np.flatnonzero(bank.any(0))[-1]) + 1
+    wp = taps.shape[1]
+    assert taps.shape == (up, wp, 2) and wp < bank.shape[1]
+    assert wp == -(-w // CHUNK) * CHUNK and packed.chunk == CHUNK
     assert not np.any(bank[:, w:]) and np.any(bank[:, w - 1])
-    np.testing.assert_array_equal(packed[:, :up, 0], bank[:up, :w].T)
-    np.testing.assert_array_equal(packed[:, :up, 1], bank[up:, :w].T)
-    assert not np.any(packed[:, up:])
+    np.testing.assert_array_equal(taps[:, :w, 0], bank[:up, :w])
+    np.testing.assert_array_equal(taps[:, :w, 1], bank[up:, :w])
+    assert not np.any(taps[:, w:])
+
+
+def _banded_bank(rng, up=5, w=77):
+    """A random bank with zeroed bands: each phase nonzero on its own run of
+    columns, an interior run of all-zero chunks, and one phase all zero."""
+    bank = rng.standard_normal((2 * up, w)).astype(np.float32)
+    for p in range(up):
+        keep = np.zeros(w, bool)
+        keep[3 + 9 * p:3 + 9 * p + 40] = True
+        bank[p, ~keep] = bank[up + p, ~keep] = 0
+    bank[:, 24:48] = 0
+    bank[2] = bank[up + 2] = 0
+    return bank, up
+
+
+_TABLE_CASES = [(13, 119, m) for m in ("line", "constant")] + \
+    [(u, d, m) for u, d in [(1, 3), (2, 7), (3, 17)]
+     for m in ("line", "constant")] + [("banded", None, None)]
+
+
+def _table_case(rng, case):
+    """(bank_ri, up, down) of a table case: the designed bank at a ratio and
+    pad type, or the random banded bank (down 7)."""
+    up, down, mode = case
+    if up == "banded":
+        bank, up = _banded_bank(rng)
+        return bank, up, 7
+    n_in = down * 140 + 5
+    h_pad, _, _ = tfir._resample_design(n_in, up, down, ("kaiser", 5.0))
+    st = tfir._mix_resample_static(h_pad.tobytes(), up, down, FC / FS, n_in,
+                                   mode)
+    return st["bank_ri"], up, down
+
+
+@pytest.mark.parametrize("case", _TABLE_CASES, ids=str)
+def test_pack_bank_phase_table_covers_every_nonzero_tap(rng, case):
+    """Each chunk's [first, last] phase range holds every phase with a
+    nonzero tap in the chunk's columns, and its ends have one (an empty
+    chunk has first > last)."""
+    bank, up, _ = _table_case(rng, case)
+    packed = pack_bank(torch.from_numpy(bank), up)
+    taps, phases = packed.taps.numpy(), packed.phases.numpy()
+    k = packed.chunk
+    assert phases.shape == (taps.shape[1] // k, 2) and taps.shape[1] % k == 0
+    for c, (pa, pb) in enumerate(phases):
+        live = np.flatnonzero(taps[:, c * k:(c + 1) * k].any(axis=(1, 2)))
+        if live.size == 0:
+            assert pa > pb, (c, pa, pb)
+        else:
+            assert (pa, pb) == (live[0], live[-1]), (c, pa, pb, live)
+    if case[0] == "banded":
+        assert (phases[:, 0] > phases[:, 1]).sum() >= 2   # interior zeros
+
+
+def _warp_pairs(phases, ksplit):
+    """The kernel's split of the live (chunk, phase) pairs over its warps:
+    in chunk order, warp w takes pairs [w·total/ksplit, (w+1)·total/ksplit).
+    Returns, per warp, a list of (chunk, first phase, last phase)."""
+    live = np.maximum(0, phases[:, 1] - phases[:, 0] + 1)
+    total = int(live.sum())
+    runs = []
+    for w in range(ksplit):
+        b0, b1 = w * total // ksplit, (w + 1) * total // ksplit
+        mine, cum = [], 0
+        for c, a in enumerate(live):
+            pa = phases[c, 0] + max(0, b0 - cum)
+            pb = phases[c, 0] + min(a, b1 - cum) - 1
+            if a > 0 and pa <= pb:
+                mine.append((c, pa, pb))
+            cum += a
+        runs.append(mine)
+    return runs
+
+
+def _chunked_model(x, packed, down, groups, up, pad_left, ksplit=8,
+                   factors=True):
+    """numpy model of the kernel's sum: each warp runs only its share of
+    the table's live (chunk, phase) pairs, on the bank's factors when it has
+    them (each sample turned by its column's phasor, then real taps); then
+    the warps' partials are added."""
+    taps = packed.taps.numpy()
+    phases = packed.phases.numpy()
+    k = packed.chunk
+    bc = (taps[..., 0] + 1j * taps[..., 1]).astype(np.complex64)
+    use = factors and packed.real is not None
+    if use:
+        ph = packed.phasor.numpy()
+        turn = (ph[:, 0] + 1j * ph[:, 1]).astype(np.complex64)
+        real = packed.real.numpy()
+    xc = (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+    wp = bc.shape[1]
+    total = (groups - 1) * down + wp
+    xp = np.zeros((x.shape[0], max(total, pad_left + x.shape[1])), np.complex64)
+    xp[:, pad_left:pad_left + x.shape[1]] = xc
+    idx = np.arange(groups)[:, None] * down + np.arange(wp)[None, :]
+    win = xp[:, idx]                                       # (F, groups, Wp)
+    if use:
+        win = win * turn
+    out = np.zeros((x.shape[0], groups, up), np.complex64)
+    runs = _warp_pairs(phases, ksplit)
+    assert sum((pb - pa + 1) for r in runs for _, pa, pb in r) == \
+        int(np.maximum(0, phases[:, 1] - phases[:, 0] + 1).sum())
+    for mine in runs:
+        part = np.zeros_like(out)
+        for c, pa, pb in mine:
+            cols = slice(c * k, (c + 1) * k)
+            b = real[pa:pb + 1, cols] if use else bc[pa:pb + 1, cols]
+            part[:, :, pa:pb + 1] += win[:, :, cols] @ b.T
+        out += part
+    return out
+
+
+@pytest.mark.parametrize("case,factors", [
+    (c, f) for c in _TABLE_CASES
+    for f in ((False, True) if c[0] != "banded" else (False,))],
+    ids=str)
+def test_chunked_phase_skip_model_matches_plain(rng, case, factors):
+    """The kernel's chunked sum that skips the phases outside each chunk's
+    table range, split over eight warps, on the complex taps or on the
+    bank's real factors, equals the dense plain version within 2e-6 of the
+    peak."""
+    bank, up, down = _table_case(rng, case)
+    packed = pack_bank(torch.from_numpy(bank), up)
+    assert (packed.real is not None) == (case[0] != "banded")
+    frames, n = 2, down * 140 + 5
+    pad = down // 2 + 1
+    groups = (n + pad - packed.taps.shape[1]) // down + 2
+    x = rng.standard_normal((frames, n, 2)).astype(np.float32)
+    want = mix_regroup_matmul_plain(torch.from_numpy(x), packed, down, groups,
+                                    up, pad).numpy()
+    got = _chunked_model(x, packed, down, groups, up, pad, factors=factors)
+    assert np.max(np.abs(got - want)) < 2e-6 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("case", _TABLE_CASES, ids=str)
+def test_pack_bank_factors_only_phasor_banks(rng, case):
+    """The mixer's folded banks factor as real taps times one unit phasor a
+    column, to FACTOR_TOL of the peak; a random bank does not."""
+    bank, up, _ = _table_case(rng, case)
+    packed = pack_bank(torch.from_numpy(bank), up)
+    if case[0] == "banded":
+        assert packed.real is None and packed.phasor is None
+        return
+    tc = torch.view_as_complex(packed.taps)
+    turn = torch.view_as_complex(packed.phasor)
+    assert packed.real.shape == tc.shape and turn.shape == tc.shape[1:]
+    np.testing.assert_allclose(turn.abs().numpy(), 1.0, rtol=1e-6)
+    err = (packed.real * turn - tc).abs().max() / tc.abs().max()
+    assert err <= FACTOR_TOL
+
+
+def test_pack_bank_fm_macs_per_group():
+    """At the FM geometry the table leaves at most 2,600 complex MACs a
+    group of the 13 × 294 a dense pass runs, and no fewer than the bank's
+    nonzero taps."""
+    up = 13
+    bank = _fm_static(119 * 160)["bank_ri"]
+    packed = pack_bank(torch.from_numpy(bank), up)
+    ph = packed.phases.numpy()
+    run = int(np.maximum(0, ph[:, 1] - ph[:, 0] + 1).sum()) * packed.chunk
+    nonzero = int(np.count_nonzero((bank[:up] != 0) | (bank[up:] != 0)))
+    assert nonzero <= run <= 2600 < up * 294
 
 
 @pytest.mark.parametrize("padtype", ["line", "constant"])
