@@ -42,14 +42,27 @@ Phases, one JSON line each; any failure exits non-zero:
    and summary detail, with the launch counts of each run, its push
    latency, and a confirmed track at the strong target; each streamed CAF
    against ``process_frames`` over the same frames;
-6. steady state, for the LS canceller and for ``nlms_pallas``:
+6. postprocess: the LS maps of step 4 through load_maps, cfar_stack, both
+   batch trackers and the display frames on the card, per frame, with a
+   confirmed track and the simple tracker's lock at the strong target, the
+   card against the CPU, and (where matplotlib imports) ``cli.plot``,
+   ``cli.track_multi`` and ``cli.track_simple`` in a work directory;
+7. wideband: bench_wideband.py's 8-channel DVB-T-class band, WIDE_CPIS
+   CPIs with one echo, through ``cli.wideband --integrate`` (the echo's
+   cell in every stack, CPI/s) and ``cli.stream`` on cuFFT and on the fused
+   FFT (a confirmed track at the echo in every channel, each channel's
+   streamed tracks against the tracker replayed on the CPU, push latency
+   by stage), and one CPI on cuFFT and on the fused FFT against the CPU;
+8. steady state, for the LS canceller and for ``nlms_pallas``:
    ``process_frames`` on one device-resident FM batch, per stage, with peak
    device memory; then one batch under torch.profiler (kernel launches,
    device busy and idle share, the heaviest kernels) and the preprocess
    stage alone (every kernel by name); then the LS batch on
    cuFFT and on the fused FFT in turns, and one profiled fused batch.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
+Then the ``{"kernels": [...]}`` line (each kernel's launches on the
+main path and, in ``launches_by_path``, on every path that runs it), the
+nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -122,6 +135,37 @@ FUSED_FFT_ENV = "PASSIVERADAR_PALLAS_FFT"
 # LS maps on the fused FFT vs the float64-FFT route, over the cuFFT route's
 # own distance from it (phase_ls_fused)
 FUSED_VS_F64 = 1.5
+# the ground-truth cells of the FM capture (Doppler row, range column)
+STRONG_CELL = (432, 153)
+WEAK_CELL = (672, 120)
+# the simple tracker holds the strong target: locked, within this many
+# cells, over the last SIMPLE_LAST frames (phase_postprocess)
+SIMPLE_CELLS = 3
+SIMPLE_LAST = 4
+# bench_wideband.py's DVB-T-class band: 8 MS/s in K = 8 channels of 1 MHz
+WIDE = dict(
+    input_sample_rate=8_000_000,
+    input_center_freq=0,
+    channel_freq=0,
+    channel_bandwidth=8_000_000,
+    cpi_seconds_nominal=0.25,
+    max_doppler_nominal=256.0,
+    max_range_nominal=60.0,
+    wideband_channels=8,
+)
+WIDE_CPIS = 12           # a track confirms in its 10th CPI at the earliest
+WIDE_BATCH = 5           # CPIs a cli.wideband batch
+# the echo: 12 channel samples late (3.6 km bistatic), +6 Doppler cells
+# (+22.9 Hz). A preliminary track takes the gated candidate nearest the
+# origin (the reference's quirk), so it creeps along the echo's sidelobes
+# and the noise towards the origin; here, next to the zeroed short-range
+# rows and zero-Doppler columns, there is nowhere for it to creep to
+WIDE_DELAY = 12
+WIDE_DOPPLER_CELLS = 6
+# a streamed track is at the echo when its estimate lies within this many
+# of the tracker's cells of the echo's cell, in range and in Doppler
+ECHO_GATE_CELLS = 1.5
+WIDE_TOL = 2e-4          # one CPI, card vs CPU, over the channel's peak
 
 
 def emit(obj):
@@ -848,20 +892,6 @@ def phase_ls_route_ab(torch, dev, cfg):
         profile_batch(torch, pl, ref, srv, ph, cfg)
 
 
-def strong_target(cfg):
-    """The strong target's map cell (432, 153) on the tracker's axes: range
-    from get_measurements' range points, Doppler from its Doppler points
-    after the fliplr of the map's Doppler rows."""
-    import torch
-    from passiveradar_torch.detect.measurements import _linspace
-    nf, nr = cfg.num_doppler_cells, cfg.num_range_cells + 1
-    d = torch.tensor(cfg.max_doppler_actual, dtype=torch.float32)
-    r = torch.tensor(cfg.max_range_actual, dtype=torch.float32)
-    rpts = _linspace(r, torch.zeros(()), nr)
-    dpts = _linspace(-d, d, nf)
-    return float(rpts[153]), float(dpts[nf - 1 - 432])
-
-
 def push_breakdown(torch, sp, ref, srv, method):
     """Where one push's time goes, on the processor's state after a stream:
     preprocess + clutter of one frame, its CAF, the CFAR and the tracker
@@ -1003,6 +1033,493 @@ def phase_stream(torch, dev, params):
                                  f"({method}): {errs}")
         del batch, streamed
     return runs
+
+
+def tracker_point(cfg, cell):
+    """A map cell (Doppler row, range column) on the tracker's axes: range
+    from get_measurements' range points, Doppler from its Doppler points
+    after the fliplr of the map's Doppler rows."""
+    import torch
+    from passiveradar_torch.detect.measurements import _linspace
+    nf, nr = cfg.num_doppler_cells, cfg.num_range_cells + 1
+    d = torch.tensor(cfg.max_doppler_actual, dtype=torch.float32)
+    r = torch.tensor(cfg.max_range_actual, dtype=torch.float32)
+    rpts = _linspace(r, torch.zeros(()), nr)
+    dpts = _linspace(-d, d, nf)
+    return float(rpts[cell[1]]), float(dpts[nf - 1 - cell[0]])
+
+
+def strong_target(cfg):
+    """The strong target's map cell (432, 153) on the tracker's axes."""
+    return tracker_point(cfg, STRONG_CELL)
+
+
+def confirmed_near(status, est, point):
+    """(frame, slot) of every confirmed track within the confirmed gate
+    (4 km, 20 Hz) of ``point``; status (F, N), est (F, N, 2)."""
+    return [(int(f), int(i)) for f, i in zip(*np.where(status == 2))
+            if abs(est[f, i, 0] - point[0]) < 4
+            and abs(est[f, i, 1] - point[1]) < 20]
+
+
+def kernel_counters():
+    """The three kernels' launch counters by the kernels line's names."""
+    from passiveradar_torch.ops import fft_kernel as fk
+    from passiveradar_torch.ops import nlms_kernel as nk
+    from passiveradar_torch.ops import resample_kernel as rk
+    return dict(mix_regroup_matmul=rk.mix_regroup_matmul,
+                nlms_filter_pallas=nk.nlms_filter_batch,
+                fft_fused=fk.fft_fused)
+
+
+def zero_counts():
+    for c in kernel_counters().values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: c.launches for name, c in kernel_counters().items()}
+
+
+def synced_ms(torch, fn):
+    """fn() once, host clock with the card synchronised on both sides:
+    (its result, milliseconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_postprocess(torch, dev, cfg):
+    """The 16-frame FM maps that cli.process wrote (phase_main_path) through
+    the post-processing chain on the card, each step timed per frame (host
+    clock, card synchronised; the loops' kernel launches per frame from a
+    traced run): load_maps, cfar_stack, multitarget_tracker (N_TRACKS
+    tracks, cfg.candidate_budget), simple_target_tracker (strict per
+    cfg.strict_frame_parity) and the display frames of iter_display_frames
+    over LazyCFAR(AbsMapStack). A confirmed multitarget track must sit at
+    the strong target by frame 9 and the simple tracker must hold it, locked
+    and within SIMPLE_CELLS cells, over the last SIMPLE_LAST frames. The
+    card's CFAR stack is held against the CPU's, and both trackers on the
+    card's CFAR stack against the CPU's. Then, where matplotlib imports,
+    cli.plot --mode frames, cli.track_multi --mode plot and
+    cli.track_simple --mode plot run on the card in a work directory;
+    where it does not, the two track CLIs' ``track`` (all but the drawing)
+    runs on the card and must give the same tracks. Returns the kernels'
+    launch counts over the phase's card work (set to 0 just before it)."""
+    from passiveradar_torch.cli.plot import LazyCFAR, cfar_stack
+    from passiveradar_torch.cli.track_multi import N_TRACKS
+    from passiveradar_torch.detect.trackers import (multitarget_tracker,
+                                                    simple_target_tracker,
+                                                    to_host)
+    from passiveradar_torch.io.writers import AbsMapStack, load_maps
+    from passiveradar_torch.viz.render import iter_display_frames
+
+    zero_counts()
+    xambg, load_ms = synced_ms(torch, lambda: load_maps(cfg))
+    f = xambg.shape[2]
+    cfar_stack(xambg, device=dev)            # the first call sets cuDNN up
+    cf, cfar_ms = synced_ms(torch, lambda: cfar_stack(xambg, device=dev))
+    extent = (cfg.max_doppler_actual, cfg.max_range_actual)
+
+    def multi(device):
+        return to_host(multitarget_tracker(
+            cf, extent, N_TRACKS, k_max=cfg.candidate_budget,
+            frames_last=True, device=device))
+
+    def simple(device):
+        return to_host(simple_target_tracker(
+            cf, cfg.max_range_actual, cfg.max_doppler_actual,
+            frames_last=True, strict=cfg.strict_frame_parity, device=device))
+
+    def display():
+        with AbsMapStack(cfg) as stack:
+            return sum(1 for _ in iter_display_frames(
+                LazyCFAR(stack, device=dev), device=dev))
+
+    ms, launches = {}, {}
+    for name, fn in (("multitarget_tracker", lambda: multi(dev)),
+                     ("simple_target_tracker", lambda: simple(dev)),
+                     ("display", display)):
+        fn()                                  # warm
+        out, t = synced_ms(torch, fn)
+        ms[name] = t / f
+        launches[name] = trace(torch, fn)["kernels"] / f
+        if name == "multitarget_tracker":
+            hist = out
+        elif name == "simple_target_tracker":
+            shist = out
+        else:
+            shown = out
+
+    strong = strong_target(cfg)
+    weak = tracker_point(cfg, WEAK_CELL)
+    hits = confirmed_near(hist["status"], hist["estimate"], strong)
+    weak_hits = confirmed_near(hist["status"], hist["estimate"], weak)
+    first = min(fr for fr, _ in hits) if hits else None
+    cell = (STRONG_CELL[1], cfg.num_doppler_cells - 1 - STRONG_CELL[0])
+    lock = shist["lock_mode"][:, 2] == 1
+    idx = shist["meas_idx"]
+    last = [dict(frame=i, locked=bool(lock[i]), meas_idx=idx[i].tolist(),
+                 estimate=shist["estimate"][i].tolist())
+            for i in range(f - SIMPLE_LAST, f)]
+    simple_held = all(r["locked"] and abs(r["meas_idx"][0] - cell[0])
+                      <= SIMPLE_CELLS and abs(r["meas_idx"][1] - cell[1])
+                      <= SIMPLE_CELLS for r in last)
+
+    # card against the CPU: CFAR on the same maps, trackers on the same CFAR
+    cf_cpu = cfar_stack(xambg, device="cpu")
+    cfar_rel = float(np.max(np.abs(cf - cf_cpu) / (np.abs(cf_cpu) + 1e-30)))
+    hist_cpu, shist_cpu = multi("cpu"), simple("cpu")
+    parity = dict(
+        cfar_max_rel=cfar_rel,
+        multi_status_equal=bool(np.array_equal(hist["status"],
+                                               hist_cpu["status"])),
+        multi_estimate_max_abs=float(np.max(np.abs(
+            hist["estimate"] - hist_cpu["estimate"]))),
+        simple_lock_equal=bool(np.array_equal(shist["lock_mode"],
+                                              shist_cpu["lock_mode"])),
+        simple_estimate_max_abs=float(np.max(np.abs(
+            shist["estimate"] - shist_cpu["estimate"]))))
+
+    rendered = None
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        # the CLIs' own tracking (their split from the drawing) on the card
+        from passiveradar_torch.cli import track_multi, track_simple
+        same = dict(
+            track_multi=bool(np.array_equal(
+                track_multi.track(cfg, device=dev)[1]["status"],
+                hist["status"])),
+            track_simple=bool(np.array_equal(
+                track_simple.track(cfg, device=dev)[1]["lock_mode"],
+                shist["lock_mode"])))
+        parity["cli_track_equal"] = same
+        if not all(same.values()):
+            raise AssertionError(f"postprocess: the CLIs' track() {same}")
+    else:
+        rendered = render_clis(os.path.join(WORK, "fm.yaml"))
+    launches_run = read_counts()
+
+    emit(dict(phase="postprocess", frames=f, maps_shape=list(xambg.shape),
+              n_tracks=N_TRACKS, candidate_budget=cfg.candidate_budget,
+              strict=cfg.strict_frame_parity,
+              ms_per_frame=dict(load_maps=load_ms / f,
+                                cfar_stack=cfar_ms / f, **ms),
+              launches_per_frame=launches, display_frames=shown,
+              strong_target_km_hz=strong,
+              first_confirmed_frame_at_strong=first,
+              weak_target_km_hz=weak,
+              confirmed_near_weak=sorted({fr for fr, _ in weak_hits}),
+              confirmed_tracks_last_frame=[
+                  [int(i), float(hist["estimate"][-1, i, 0]),
+                   float(hist["estimate"][-1, i, 1])]
+                  for i in np.where(hist["status"][-1] == 2)[0]],
+              simple_strong_cell=list(cell), simple_last_frames=last,
+              card_vs_cpu=parity, matplotlib=rendered is not None,
+              rendered=rendered, kernel_launches=launches_run))
+    if first is None or first > 9:
+        raise AssertionError(f"postprocess: no confirmed track at {strong} "
+                             f"by frame 9 (first: {first})")
+    if not simple_held:
+        raise AssertionError(f"postprocess: the simple tracker does not "
+                             f"hold {cell}: {last}")
+    if shown != f:
+        raise AssertionError(f"postprocess: {shown} display frames of {f}")
+    if not (cfar_rel <= 1e-5 and parity["multi_status_equal"]
+            and parity["simple_lock_equal"]
+            and parity["multi_estimate_max_abs"] <= 1e-3
+            and parity["simple_estimate_max_abs"] <= 1e-3):
+        raise AssertionError(f"postprocess: card vs CPU {parity}")
+    return launches_run
+
+
+def render_clis(cfg_path) -> dict:
+    """cli.plot --mode frames, cli.track_multi --mode plot and
+    cli.track_simple --mode plot on the card, in a work directory of their
+    own (they write into the working directory): what each wrote."""
+    from passiveradar_torch.cli.plot import main as plot_main
+    from passiveradar_torch.cli.track_multi import main as multi_main
+    from passiveradar_torch.cli.track_simple import main as simple_main
+
+    out_dir = os.path.join(WORK, "render")
+    os.makedirs(out_dir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        t0 = time.perf_counter()
+        plot_main(["--config", cfg_path, "--mode", "frames"])
+        plot_s = time.perf_counter() - t0
+        multi_main(["--config", cfg_path, "--mode", "plot"])
+        simple_main(["--config", cfg_path, "--mode", "plot"])
+        done = dict(plot_pngs=len([n for n in os.listdir("IMG")
+                                   if n.endswith(".png")]),
+                    plot_s=plot_s,
+                    multitarget_plot=os.path.exists("MULTITARGET_PLOT.png"),
+                    tracker_plot=os.path.exists("TRACKER_PLOT.png"))
+    finally:
+        os.chdir(cwd)
+    if not (done["plot_pngs"] == FRAMES and done["multitarget_plot"]
+            and done["tracker_plot"]):
+        raise AssertionError(f"postprocess CLIs wrote {done}")
+    return done
+
+
+def wideband_breakdown(torch, dev, cfg, ref, srv, route):
+    """Where one wideband push's time goes, on a processor warmed by three
+    pushes: channelize, clean (the LS canceller of every channel), CAF,
+    CFAR and the trackers' steps, each timed alone by CUDA events (host
+    launch gaps included), the whole push, and the trackers' kernel
+    launches under torch.profiler."""
+    from passiveradar_torch.ops.cfar import cfar_2d
+    from passiveradar_torch.wideband import (WidebandStreamingProcessor,
+                                             channel_caf, channel_clean,
+                                             channel_inputs)
+    sp = WidebandStreamingProcessor(cfg, device=dev)
+    with route():
+        for _ in range(3):
+            sp.push(ref, srv)
+        rc, sc = channel_inputs(ref[None], srv[None], cfg)
+        clean = channel_clean(rc, sc, cfg)
+        maps = channel_caf(rc, clean, cfg)
+        mag = maps.abs()
+        cf = cfar_2d(mag, *sp.cfar_kernel)
+        ms = dict(
+            channelize=cuda_ms(torch, lambda: channel_inputs(
+                ref[None], srv[None], cfg), 5, warmup=1),
+            clean=cuda_ms(torch, lambda: channel_clean(rc, sc, cfg), 5,
+                          warmup=1),
+            caf=cuda_ms(torch, lambda: channel_caf(rc, clean, cfg), 5,
+                        warmup=1),
+            cfar=cuda_ms(torch, lambda: cfar_2d(mag, *sp.cfar_kernel), 5,
+                         warmup=1),
+            tracker=cuda_ms(torch, lambda: sp.track(cf), 5, warmup=1),
+            push=cuda_ms(torch, lambda: sp.push(ref, srv), 5, warmup=1))
+        launches = trace(torch, lambda: sp.track(cf))["kernels"]
+    return dict(stage_ms=ms, tracker_kernel_launches=launches)
+
+
+@contextlib.contextmanager
+def recorded_pushes(cls):
+    """Context: every result that ``cls.push`` returns, in order, appended
+    to the list it yields (the call itself unchanged)."""
+    pushes, push = [], cls.push
+
+    def recording(self, *a, **kw):
+        res = push(self, *a, **kw)
+        pushes.append(res)
+        return res
+
+    cls.push = recording
+    try:
+        yield pushes
+    finally:
+        cls.push = push
+
+
+def replay_tracks(cfg, pushes) -> dict:
+    """Each channel's streamed track tables (full-detail pushes) against
+    multitarget_tracker on the CPU over the CFAR frames the same pushes
+    returned: statuses and lifetimes equal in every frame, estimates
+    within 1e-3 of the CPU's."""
+    from passiveradar_torch.detect.trackers import (multitarget_tracker,
+                                                    to_host)
+    out = {}
+    for k in cfg.wideband_channel_select:
+        streamed = {key: np.stack([r[k].tracks[key] for r in pushes])
+                    for key in ("status", "lifetime", "estimate")}
+        cpu = to_host(multitarget_tracker(
+            np.stack([r[k].cfar for r in pushes]),
+            (cfg.max_doppler_actual, cfg.max_range_actual),
+            streamed["status"].shape[1], k_max=cfg.candidate_budget,
+            frames_last=False, device="cpu"))
+        out[k] = dict(
+            status_equal=bool(np.array_equal(streamed["status"],
+                                             cpu["status"])),
+            lifetime_equal=bool(np.array_equal(streamed["lifetime"],
+                                               cpu["lifetime"])),
+            estimate_max_abs=float(np.max(np.abs(streamed["estimate"]
+                                                 - cpu["estimate"]))))
+    return out
+
+
+def near_echo(status, est, point, cells) -> list:
+    """Slots of the confirmed tracks whose estimate lies within
+    ECHO_GATE_CELLS of ``cells`` (the tracker's range and Doppler cell)
+    of ``point``; status (N,), est (N, 2)."""
+    return [int(i) for i in np.where(status == 2)[0]
+            if abs(est[i, 0] - point[0]) <= ECHO_GATE_CELLS * cells[0]
+            and abs(est[i, 1] - point[1]) <= ECHO_GATE_CELLS * cells[1]]
+
+
+def phase_wideband(torch, dev):
+    """bench_wideband.py's DVB-T-class band (8 MS/s in K = 8 channels of
+    1 MHz, 0.25 s CPI: 262,144 samples a channel, 2^21 a CPI; 60 km,
+    256 Hz; every channel selected), WIDE_CPIS CPIs written as a zarr store
+    with a station in each channel and one echo: cli.wideband --integrate
+    (the echo's cell the argmax of every CPI of every channel stack and of
+    the integrated stack; CPI/s), then cli.stream on cuFFT and under
+    PASSIVERADAR_PALLAS_FFT=1 (in every channel a confirmed track within
+    ECHO_GATE_CELLS of the echo's cell, and every channel's streamed track
+    tables equal to the tracker replayed on the CPU over the same CFAR
+    frames; push latency; each run's launch counts, set to 0 just before
+    it), each push broken down by stage, and one CPI of wideband_frames on
+    the card, on cuFFT and on the fused FFT, against the CPU and against
+    each other. Returns the launch counts of the three runs."""
+    import yaml
+
+    from passiveradar_torch.cli.stream import main as stream_main
+    from passiveradar_torch.cli.wideband import main as wideband_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io import zarr_min
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.io.synthetic import write_wideband_capture
+    from passiveradar_torch.wideband import (WidebandStreamingProcessor,
+                                             channel_path, integrated_path,
+                                             wideband_frames)
+
+    params = dict(WIDE, input_file=os.path.join(WORK, "wb_capture.zarr"),
+                  output_fname=os.path.join(WORK, "WB"),
+                  range_doppler_map_ftype="zarr", num_frames=WIDE_CPIS)
+    cfg = derive_config(params)
+    k = cfg.wideband_channels
+    t0 = time.perf_counter()
+    write_wideband_capture(
+        params["input_file"], cfg, WIDE_CPIS, seed=11,
+        delay_samples=WIDE_DELAY * k,
+        doppler_hz=WIDE_DOPPLER_CELLS * cfg.doppler_cell_width)
+    gen_s = time.perf_counter() - t0
+    cfg_path = os.path.join(WORK, "wb.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(params, fh)
+    nf, r = cfg.num_doppler_cells, cfg.num_range_cells
+    cell = (nf // 2 - WIDE_DOPPLER_CELLS, r - WIDE_DELAY)
+
+    def argmax_misses(stack):
+        return [fr for fr in range(stack.shape[2])
+                if np.unravel_index(np.argmax(np.abs(stack[:, :, fr])),
+                                    stack.shape[:2]) != cell]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    n = wideband_main(["--config", cfg_path, "--integrate",
+                       "--batch-frames", str(WIDE_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    process_launches = read_counts()
+    misses = {}
+    for ch in cfg.wideband_channel_select:
+        bad = argmax_misses(np.asarray(zarr_min.open(channel_path(cfg, ch),
+                                                     mode="r")))
+        if bad:
+            misses[ch] = bad
+    bad = argmax_misses(np.asarray(zarr_min.open(integrated_path(cfg),
+                                                 mode="r")))
+    if bad:
+        misses["integrated"] = bad
+
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    ref_np, srv_np = reader.read_iq_frames(0, WIDE_BATCH)
+    reader.close()
+    ref = torch.from_numpy(ref_np).to(dev)
+    srv = torch.from_numpy(srv_np).to(dev)
+    batch_ms = cuda_ms(torch, lambda: wideband_frames(ref, srv, cfg), 3,
+                       warmup=1)
+    emit(dict(phase="wideband_process", cpis=n, channels=k,
+              samples_per_channel=cfg.cpi_samples,
+              maps_shape=[nf, r + 1], echo_cell=list(cell),
+              capture_gen_s=gen_s, wall_s=wall, cpi_per_s=n / wall,
+              batch_frames=WIDE_BATCH,
+              batch_ms=batch_ms, batch_cpi_per_s=WIDE_BATCH / batch_ms * 1e3,
+              realtime_cpi_per_s=1 / cfg.frame_interval,
+              launches=process_launches, argmax_misses=misses))
+    if n != WIDE_CPIS or misses or any(process_launches.values()):
+        raise AssertionError(f"cli.wideband: {n} CPIs, argmax misses "
+                             f"{misses}, launches {process_launches}")
+
+    target = tracker_point(cfg, cell)
+    # the tracker's cell sizes at the echo: one range column, one Doppler row
+    cells = (abs(tracker_point(cfg, (cell[0], cell[1] + 1))[0] - target[0]),
+             abs(tracker_point(cfg, (cell[0] + 1, cell[1]))[1] - target[1]))
+    launches_by_run = dict(wideband_process=process_launches)
+    for fused in (False, True):
+        route = fused_fft if fused else contextlib.nullcontext
+        with route(), recorded_pushes(WidebandStreamingProcessor) as pushes:
+            zero_counts()
+            res = stream_main(["--config", cfg_path])
+            torch.cuda.synchronize()
+            launches = read_counts()
+        lat = np.asarray(res["push_ms"])
+        hits, last = {}, {}
+        for ch, table in res["tracks"].items():
+            status = np.asarray(table["status"])
+            est = np.asarray(table["estimate"])
+            hits[ch] = near_echo(status, est, target, cells)
+            last[ch] = [[int(i), float(est[i, 0]), float(est[i, 1])]
+                        for i in np.where(status == 2)[0]]
+        replay = replay_tracks(cfg, pushes)
+        split = wideband_breakdown(torch, dev, cfg, ref[0], srv[0], route)
+        emit(dict(phase="wideband_stream", fused_fft=fused,
+                  frames=res["frames"], launches=launches,
+                  wall_s=res["seconds"],
+                  push_ms_median=float(np.median(lat)),
+                  push_ms_max=float(lat.max()),
+                  push_ms_steady_median=float(np.median(lat[1:])),
+                  push_ms=lat.tolist(),
+                  budget_ms=1e3 * cfg.frame_interval,
+                  realtime=bool(np.median(lat[1:]) < 1e3 * cfg.frame_interval),
+                  echo_km_hz=target, echo_gate_km_hz=[
+                      ECHO_GATE_CELLS * c for c in cells],
+                  confirmed_at_echo=hits, confirmed_last_frame=last,
+                  card_vs_cpu_replay=replay, **split))
+        want = dict(mix_regroup_matmul=0, nlms_filter_pallas=0,
+                    fft_fused=2 * WIDE_CPIS if fused else 0)
+        if res["frames"] != WIDE_CPIS or launches != want or \
+                len(pushes) != WIDE_CPIS:
+            raise AssertionError(f"wideband stream (fused {fused}): frames "
+                                 f"{res['frames']}, pushes {len(pushes)}, "
+                                 f"launches {launches}")
+        if sorted(hits) != list(cfg.wideband_channel_select) or \
+                not all(hits.values()):
+            raise AssertionError(f"wideband stream (fused {fused}): "
+                                 f"confirmed tracks at {target}: {hits}")
+        if not all(v["status_equal"] and v["lifetime_equal"]
+                   and v["estimate_max_abs"] <= 1e-3
+                   for v in replay.values()):
+            raise AssertionError(f"wideband stream (fused {fused}): card "
+                                 f"vs the CPU's replay {replay}")
+        launches_by_run["wideband_stream_fused" if fused
+                        else "wideband_stream"] = launches
+        del pushes
+
+    # one CPI on the card, on cuFFT and on the fused FFT, against the CPU
+    # and against each other
+    got = wideband_frames(ref[:1], srv[:1], cfg).cpu().numpy()[0]
+    with fused_fft():
+        got_fused = wideband_frames(ref[:1], srv[:1], cfg).cpu().numpy()[0]
+    want = wideband_frames(ref_np[:1], srv_np[:1], cfg,
+                           device="cpu").numpy()[0]
+
+    def against(a, b):
+        errs, same = [], []
+        for i in range(len(cfg.wideband_channel_select)):
+            peak = np.max(np.abs(b[i]))
+            errs.append(float(np.max(np.abs(a[i] - b[i])) / peak))
+            same.append(bool(np.argmax(np.abs(a[i])) ==
+                             np.argmax(np.abs(b[i]))))
+        return dict(max_rel_err=max(errs), rel_err_by_channel=errs,
+                    argmax_equal=same)
+
+    pairs = dict(cufft_vs_cpu=against(got, want),
+                 fused_vs_cpu=against(got_fused, want),
+                 fused_vs_cufft=against(got_fused, got))
+    emit(dict(phase="wideband_parity", cpis=1, tol=WIDE_TOL, **pairs))
+    if not all(all(v["argmax_equal"]) and v["max_rel_err"] <= WIDE_TOL
+               for v in pairs.values()):
+        raise AssertionError(f"wideband CPI card vs CPU: {pairs}")
+    return launches_by_run
 
 
 def compare_maps(got, want, nan_frames=None):
@@ -1380,6 +1897,8 @@ def main() -> int:
         phase_ls_fused(torch, dev, cfg)
         stream = phase_stream(torch, dev, params)
         row_fft["launches"] = stream["ls_multiple"]["fft_fused"]
+        post = phase_postprocess(torch, dev, cfg)
+        wide = phase_wideband(torch, dev)
         phase_steady(torch, dev, cfg)
         phase_ls_route_ab(torch, dev, cfg)
         phase_steady(torch, dev,
@@ -1387,6 +1906,21 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     row["launches"] = launches
+    # every path's own count (set to 0 just before it): the maps that the
+    # postprocess phase reads come from the LS cli.process run
+    later = dict(postprocess=post, **wide)
+    row["launches_by_path"] = dict(process_ls=launches,
+                                   stream_ls_fused=stream["ls_multiple"]
+                                   ["mix_regroup_matmul"],
+                                   stream_nlms_pallas=stream["nlms_pallas"]
+                                   ["mix_regroup_matmul"])
+    row_nlms["launches_by_path"] = dict(
+        process_nlms_pallas=row_nlms["launches"],
+        stream_nlms_pallas=stream["nlms_pallas"]["nlms_filter_pallas"])
+    row_fft["launches_by_path"] = dict(stream_ls_fused=row_fft["launches"])
+    for r in (row, row_nlms, row_fft):
+        r["launches_by_path"].update(
+            {path: counts[r["name"]] for path, counts in later.items()})
     emit({"kernels": [row, row_nlms, row_fft]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

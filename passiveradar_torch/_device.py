@@ -7,6 +7,7 @@ it). No global device state is kept: every entry point passes its device on.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor for an op that follows its input's device: a
+    tensor stays where it lies unless ``device`` is given; anything else
+    (numpy) goes to ``resolve_device(device)``, the card by default."""
+    if torch.is_tensor(x) and device is None:
+        return x
+    dev = resolve_device(device)
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev)

@@ -10,11 +10,24 @@ import yaml
 from passiveradar_torch.config import RadarConfig, load_config
 
 
-def parser(description: str) -> argparse.ArgumentParser:
+def parser(description: str, modes=None) -> argparse.ArgumentParser:
+    """The CLIs' parser: ``--config``, and ``--mode`` (first of ``modes``
+    by default) where the CLI has modes."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True, type=str,
                    help="Path to the YAML configuration file")
+    if modes:
+        p.add_argument("--mode", type=str, choices=list(modes),
+                       default=list(modes)[0],
+                       help=f"Output mode ({'/'.join(modes)})")
     return p
+
+
+def add_device(p: argparse.ArgumentParser) -> None:
+    """``--device {cuda,cpu}``, default cuda (no fallback to the CPU)."""
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="Device to run on (default: cuda; there is no "
+                        "fallback to the CPU)")
 
 
 def load(args) -> RadarConfig:

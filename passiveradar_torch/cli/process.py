@@ -11,8 +11,8 @@ from __future__ import annotations
 import time
 
 from passiveradar_torch._device import resolve_device
-from passiveradar_torch.cli.common import banner, fail_on_missing_capture, \
-    load, parser
+from passiveradar_torch.cli.common import add_device, banner, \
+    fail_on_missing_capture, load, parser
 from passiveradar_torch.io.hdf5 import CaptureReader
 from passiveradar_torch.io.writers import MapWriter, write_metadata
 from passiveradar_torch.pipeline import capture_frame_count, run_capture
@@ -30,9 +30,7 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="Resume an interrupted run from the existing output "
                         "file")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="Device to run on (default: cuda; there is no "
-                        "fallback to the CPU)")
+    add_device(p)
     for flag in _NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help="not available in the PyTorch port yet")

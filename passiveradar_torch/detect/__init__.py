@@ -1,7 +1,8 @@
 """Target detection and tracking: CFAR maps → measurements → Kalman tracks.
 
-The frame-at-a-time multitarget tracker that streaming runs; the batch
-trackers and their CLIs are not ported yet (see ROADMAP.md)."""
+The frame-at-a-time multitarget tracker that streaming runs, and the batch
+trackers over a stored stack (multitarget and single-target) that the
+track CLIs run."""
 
 from passiveradar_torch.detect.kalman import (
     adaptive_kalman_update,
@@ -10,7 +11,12 @@ from passiveradar_torch.detect.kalman import (
     kalman_update,
 )
 from passiveradar_torch.detect.measurements import get_measurements
-from passiveradar_torch.detect.trackers import init_tracks, multitarget_step
+from passiveradar_torch.detect.trackers import (
+    init_tracks,
+    multitarget_step,
+    multitarget_tracker,
+    simple_target_tracker,
+)
 
 __all__ = [
     "kalman_update",
@@ -20,4 +26,6 @@ __all__ = [
     "get_measurements",
     "init_tracks",
     "multitarget_step",
+    "multitarget_tracker",
+    "simple_target_tracker",
 ]

@@ -1,20 +1,29 @@
-"""The multitarget Kalman tracker, one frame at a time (counterpart of the
-streaming part of the JAX package's detect/trackers.py).
+"""Kalman target trackers (counterpart of the JAX package's
+detect/trackers.py).
 
-The reference tracker (target_detection.py:455-526) is a Python frame loop
-over structured numpy records with data-dependent control flow. Here, as in
-the JAX package, the association logic is masks and argmax/argmin
-selections over a fixed-size candidate table, and the track table is a
-dict of (n_tracks, …) tensors on the maps' device. The JAX ``scan`` over
-track slots becomes a Python loop over the slots in priority order; the
-only host read of a step is that order.
+The reference trackers (target_detection.py:455-526, 626-681) are Python
+frame loops over structured numpy records with data-dependent control flow.
+Here, as in the JAX package, the association logic is masks and
+argmax/argmin selections over a fixed-size candidate table, and the track
+table is a dict of (n_tracks, …) tensors on the maps' device. The JAX
+``scan``s become Python loops: over the track slots in priority order (the
+only host read of a step is that order) and over the frames of a stack, the
+frame loop of both batch trackers running on the device.
 
-Documented behavioural notes (kept from the JAX package):
+Documented behavioural notes (quirks preserved or deliberately diverged,
+as in the JAX package):
   * association gates, priorities and promotion/kill rules match the
     reference, including its quirk that a preliminary track with several
     gated candidates picks the one nearest the *origin* (reference
     target_detection.py:329), and that status rules read the *pre-update*
     measurement history (reference target_detection.py:436-446).
+  * the simple tracker's hard-coded "cols 250:260" clutter zeroing (reference
+    target_detection.py:673, valid only for the author's 512-bin frames) is
+    generalised to ±5 Doppler columns around the centre (``strict=True``
+    keeps the literal one).
+  * the simple tracker's rectangular gates clamp at frame edges instead of
+    inheriting Python's negative-index slicing behavior (``strict=True``
+    keeps the slicing, empty gates included).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from passiveradar_torch._device import on_device, resolve_device
 from passiveradar_torch.detect.kalman import (
     _inv2,
     adaptive_kalman_update,
@@ -95,6 +105,13 @@ def _put(table, i: int, track) -> None:
 
 def _clone(table):
     return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in table.items()}
+
+
+def to_host(table) -> dict:
+    """A (nested) dict of tensors, such as a track table or a tracker's
+    history, as host numpy arrays."""
+    return {k: to_host(v) if isinstance(v, dict) else v.cpu().numpy()
             for k, v in table.items()}
 
 
@@ -221,3 +238,207 @@ def multitarget_step(tracks, frame, frame_extent, n_tracks: int, k_max: int):
         meas, found, avail = _associate(tr, cand, avail)
         _put(tracks, i, _track_transition(tr, meas, found))
     return tracks
+
+
+# --------------------------------------------------------------------------
+# batch trackers over a frame stack
+# --------------------------------------------------------------------------
+
+def _orient_stack(data, frames_last, device=None) -> torch.Tensor:
+    """Normalise a frame stack to a frames-first float32 tensor on
+    ``device`` (default: the CUDA card).
+
+    frames_last=None guesses ONLY when unambiguous: the candidate frame
+    axis (first or last) must be at most half of both map dimensions of its
+    interpretation, and only one interpretation may qualify. Anything else
+    raises — a silently wrong orientation produces garbage tracks, so an
+    ambiguous stack (frame count rivaling a map dimension, e.g. the
+    reference FM geometry's (1024, 176, 1200)) requires an explicit
+    frames_last from the caller. The CLI surfaces always pass it.
+    """
+    if not torch.is_tensor(data):
+        data = np.asarray(data, np.float32)
+    data = on_device(data, resolve_device(device)).float()
+    if data.dim() != 3:
+        raise ValueError("expected a 3-D frame stack")
+    if frames_last is None:
+        last_ok = data.shape[2] * 2 <= min(data.shape[0], data.shape[1])
+        first_ok = data.shape[0] * 2 <= min(data.shape[1], data.shape[2])
+        if last_ok == first_ok:
+            raise ValueError(
+                f"cannot infer frame-stack orientation for shape "
+                f"{tuple(data.shape)} — the frame count rivals the map "
+                "dimensions; pass frames_last explicitly (True for the "
+                "reference (doppler, range, frames) file layout)")
+        frames_last = last_ok
+    if frames_last:
+        data = data.movedim(2, 0)
+    return data
+
+
+def multitarget_tracker(data, frame_extent, n_tracks: int = 10,
+                        k_max: int = 384, frames_last: bool | None = None,
+                        device=None):
+    """Track up to ``n_tracks`` targets through a stack of range-Doppler maps.
+
+    data: (num_doppler, num_range, num_frames), the reference's file layout
+    (target_detection.py:455-526, pass frames_last=True), or
+    (num_frames, num_doppler, num_range) (frames_last=False); the default
+    guesses from the shapes (see _orient_stack). frame_extent:
+    (max_doppler_hz, max_range_km). Runs on ``device`` (default: the CUDA
+    card), one multitarget_step a frame.
+
+    Returns a dict of tensors with leading axes (num_frames, n_tracks):
+    status, lifetime, measurement, estimate, history, kalman.*.
+    """
+    frames = _orient_stack(data, frames_last, device)
+    extent = torch.as_tensor(frame_extent, dtype=torch.float32,
+                             device=frames.device)
+    tracks = init_tracks(int(n_tracks), frames.device)
+    history = []
+    for frame in frames:
+        tracks = multitarget_step(tracks, frame, extent, int(n_tracks),
+                                  int(k_max))
+        history.append(tracks)
+    return _stack(history)
+
+
+# --------------------------------------------------------------------------
+# single-target tracker (reference target_detection.py:530-681)
+# --------------------------------------------------------------------------
+
+_LOCK_FOUND = np.array([[0, 1, 0, 0], [0, 0, 1, 0],
+                        [0, 0, 1, 0], [0, 0, 1, 0]], np.float32).T
+_LOCK_LOST = np.array([[1, 0, 0, 0], [1, 0, 0, 0],
+                       [0, 0, 0, 1], [1, 0, 0, 0]], np.float32).T
+
+
+def _simple_kalman_init(device):
+    st = default_kalman_state(30.0, -20.0, device=device)
+    # the simple tracker's own filter constants (reference
+    # target_detection.py:634-641, after Howland et al.)
+    consts = dict(
+        x=np.array([30, 2, -20, -1], np.float32),
+        F1=np.array([[1, 0, -0.003, 0], [0, 0, -0.003, -0.03],
+                     [0, 0, 1, 1], [0, 0, 0, 1]], np.float32),
+        Q=np.diag([2.0, 0.02, 0.2, 0.05]).astype(np.float32),
+        R=np.diag([5.0, 5.0]).astype(np.float32))
+    st.update({k: torch.from_numpy(v).to(device) for k, v in consts.items()})
+    return st
+
+
+def _py_slice_mask(coords: torch.Tensor, idx: torch.Tensor, half, n: int):
+    """Boolean mask of ``coords`` selected by the Python slice
+    ``a[idx-half : idx+half]`` on a length-n axis — including the
+    negative-start wraparound quirk: for idx < half the start index
+    becomes n+idx-half, which usually EXCEEDS the stop and yields an
+    empty selection (the reference's literal gate behavior,
+    target_detection.py:570-588)."""
+    start = torch.where(idx >= half, idx - half,
+                        torch.clamp(n + idx - half, min=0))
+    stop = torch.clamp(idx + half, max=n)
+    return (coords >= start) & (coords < stop)
+
+
+def _simple_scan(frames: torch.Tensor, range_extent: float,
+                 doppler_extent: float, strict: bool = False):
+    """The lock-state frame loop over (F, nr, nf) prepared frames, on their
+    device. Returns the per-frame states stacked: lock_mode, measurement,
+    meas_idx, estimate, kalman.*."""
+    dev = frames.device
+    nr, nf = frames.shape[1], frames.shape[2]
+    rows = torch.arange(nr, device=dev)[:, None]
+    cols = torch.arange(nf, device=dev)[None, :]
+    r_ext = torch.tensor(range_extent, dtype=torch.float32, device=dev)
+    d_ext = torch.tensor(doppler_extent, dtype=torch.float32, device=dev)
+    t_found = torch.from_numpy(_LOCK_FOUND).to(dev)
+    t_lost = torch.from_numpy(_LOCK_LOST).to(dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def const(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    st = dict(
+        lock_mode=const([1, 0, 0, 0], torch.float32),
+        measurement=const([35.0, -30.0], torch.float32),
+        meas_idx=const([50, 50], torch.int32),
+        estimate=const([30.0, -20.0], torch.float32),
+        kalman=_simple_kalman_init(dev),
+    )
+    history = []
+    for frame in frames:
+        ly, lx = st["meas_idx"][0], st["meas_idx"][1]
+        lock = st["lock_mode"]
+        locked = lock[2] == 1
+        half_r = torch.where(locked, 16, 24)
+        half_d = torch.where(locked, 32, 48)
+        if strict:
+            # literal reference gate: Python-slice semantics incl. the
+            # negative-start empty-gate quirk
+            gate = (_py_slice_mask(rows, ly, half_r, nr)
+                    & _py_slice_mask(cols, lx, half_d, nf))
+        else:
+            # generalised: centred rectangle clamped at the frame edges
+            gate = ((rows - ly).abs() < half_r) & ((cols - lx).abs() < half_d)
+        use_gate = lock[0] != 1
+        gated = torch.where(use_gate & ~gate, zero, frame)
+
+        flat = torch.argmax(gated.reshape(-1))
+        iy, ix = flat // nf, flat % nf
+        range_meas = r_ext * (1.0 - iy / nr)
+        doppler_meas = d_ext * (2.0 * ix / nf - 1.0)
+        meas = torch.stack([range_meas, doppler_meas]).to(torch.float32)
+
+        surprise = meas - st["estimate"]
+        badness = torch.sqrt(surprise[0] ** 2 + (0.5 * surprise[1]) ** 2)
+        found = badness < 12
+        new_lock = torch.where(found, t_found @ lock, t_lost @ lock)
+
+        est, kal = adaptive_kalman_update(meas, st["measurement"],
+                                          st["kalman"])
+        st = dict(lock_mode=new_lock, measurement=meas,
+                  meas_idx=torch.stack([iy, ix]).to(torch.int32),
+                  estimate=est, kalman=kal)
+        history.append(st)
+    return _stack(history)
+
+
+def simple_target_tracker(data, range_extent: float, doppler_extent: float,
+                          frames_last: bool | None = None,
+                          strict: bool = False, device=None):
+    """Single-target lock-state tracker (reference
+    target_detection.py:626-681), on ``device`` (default: the CUDA card).
+
+    data: (num_doppler, num_range, num_frames) (frames_last=True) or
+    frames-first (frames_last=False); the default guesses from the shapes.
+    Each frame is normalised, reoriented and clutter-zeroed, then the gated
+    argmax becomes the measurement for an adaptive Kalman update; a 4-state
+    lock-mode one-hot is advanced through the found/lost transition
+    matrices.
+
+    ``strict=True`` replicates the reference's literal per-frame behaviours
+    (the tracker analog of cfg.strict_frame_parity): the hard-coded Doppler
+    cols-250:260 clutter zeroing (a no-op when nf <= 250, exactly as in
+    numpy) instead of the centre-relative ±5 zeroing, and Python-slice
+    measurement gates including the negative-start empty-gate quirk
+    (target_detection.py:570-588) instead of edge-clamped rectangles.
+
+    Returns a dict of tensors with a leading frame axis: lock_mode (F, 4),
+    measurement (F, 2), meas_idx (F, 2) int32, estimate (F, 2), kalman.*.
+    """
+    data = _orient_stack(data, frames_last, device)
+    nf = data.shape[1]
+
+    # per-frame normalise / orient / zero (reference
+    # target_detection.py:663-673)
+    frames = data / data.abs().mean(dim=(1, 2), keepdim=True)
+    frames = torch.flip(frames.transpose(1, 2), dims=(2,))  # (F, nr, nf)
+    frames[:, :8, :] = 0.0
+    frames[:, -8:, :] = 0.0
+    if strict:
+        frames[:, :, 250:260] = 0.0
+    else:
+        dc = nf // 2
+        frames[:, :, dc - 5:dc + 5] = 0.0
+    return _simple_scan(frames, float(range_extent), float(doppler_extent),
+                        strict=strict)

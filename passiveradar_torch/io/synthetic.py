@@ -7,7 +7,10 @@ channel ``offset_freq`` away from the capture centre. The reference channel
 receives the direct signal; the surveillance channel an attenuated direct
 copy (clutter) plus point-target echoes with bistatic delay and Doppler,
 plus receiver noise. Each injected target must reappear at its (delay,
-Doppler) cell of the range-Doppler maps.
+Doppler) cell of the range-Doppler maps. ``wideband_capture_arrays`` makes
+the wideband counterpart: a station in each selected channel of a
+channelized band and one echo (the scene of the JAX package's wideband
+tests).
 """
 
 from __future__ import annotations
@@ -84,18 +87,47 @@ def synth_capture_arrays(cfg: RadarConfig, n_frames: int,
     return interleave(ref), interleave(srv)
 
 
-def write_synth_capture(path: str, cfg: RadarConfig, n_frames: int,
-                        interleaved: bool | None = None,
-                        dtype=np.float32, **kwargs) -> None:
-    """Write a synthetic capture in the reference's layout.
+def wideband_capture_arrays(cfg: RadarConfig, n_frames: int,
+                            delay_samples: int = 8, doppler_hz: float = 6.0,
+                            echo: float = 0.1, direct_gain: float = 0.7,
+                            noise_level: float = 1e-3, seed: int = 0):
+    """(ref_stream, srv_stream) real interleaved float32 IQ arrays of a
+    wideband capture: ``n_frames`` CPIs of wideband_channels·cpi_samples
+    complex samples. The reference holds one station (8-sample boxcar
+    smoothed complex noise) centred in each selected channel; the
+    surveillance channel is ``direct_gain`` of it, plus one echo
+    ``delay_samples`` wideband samples late (circularly) at ``doppler_hz``,
+    plus receiver noise. Complex64 arithmetic throughout, so a capture of
+    tens of millions of samples stays a few hundred MB."""
+    rng = np.random.default_rng(seed)
+    k = cfg.wideband_channels
+    n = cfg.cpi_samples * k * n_frames
+    idx = np.arange(n)
+    phase = idx % k
 
-    An HDF5 file (h5py), or a zarr v2 directory store with the same dataset
-    paths when ``path`` ends in ``.zarr`` (uncompressed, 4 Mi-element
-    chunks). interleaved=True writes the single-dataset 4-way interleaved
-    layout ([refI, refQ, srvI, srvQ, ...]); default follows
-    cfg.interleaved_input_channels. dtype int16 emulates SDR captures.
-    """
-    ref, srv = synth_capture_arrays(cfg, n_frames, **kwargs)
+    def noise():
+        out = np.empty(n, np.complex64)
+        out.real = rng.standard_normal(n, dtype=np.float32)
+        out.imag = rng.standard_normal(n, dtype=np.float32)
+        return out
+
+    ref = np.zeros(n, np.complex64)
+    for ch in cfg.wideband_channel_select:
+        station = np.convolve(noise(), np.ones(8, np.float32) / 8, "same")
+        # channel ch's centre, ch·fs/K, turns by ch/K of a cycle a sample
+        turn = np.exp(2j * np.pi * (ch * np.arange(k) % k) / k).astype(
+            np.complex64)
+        ref += station * turn[phase]
+    shift = np.exp(2j * np.pi * np.mod(doppler_hz * idx / cfg.input_sample_rate,
+                                       1.0)).astype(np.complex64)
+    srv = (np.float32(direct_gain) * ref
+           + np.float32(echo) * np.roll(ref, delay_samples) * shift
+           + np.float32(noise_level) * noise())
+    return ref.view(np.float32), srv.view(np.float32)
+
+
+def _write_capture(path: str, cfg: RadarConfig, ref: np.ndarray,
+                   srv: np.ndarray, interleaved: bool | None, dtype) -> None:
     if interleaved is None:
         interleaved = cfg.interleaved_input_channels
     if dtype == np.int16:
@@ -124,3 +156,29 @@ def write_synth_capture(path: str, cfg: RadarConfig, n_frames: int,
     with h5py.File(path, "w") as f:
         for key, arr in datasets.items():
             f.create_dataset(key, data=arr)
+
+
+def write_synth_capture(path: str, cfg: RadarConfig, n_frames: int,
+                        interleaved: bool | None = None,
+                        dtype=np.float32, **kwargs) -> None:
+    """Write a synthetic capture in the reference's layout.
+
+    An HDF5 file (h5py), or a zarr v2 directory store with the same dataset
+    paths when ``path`` ends in ``.zarr`` (uncompressed, 4 Mi-element
+    chunks). interleaved=True writes the single-dataset 4-way interleaved
+    layout ([refI, refQ, srvI, srvQ, ...]); default follows
+    cfg.interleaved_input_channels. dtype int16 emulates SDR captures.
+    """
+    _write_capture(path, cfg, *synth_capture_arrays(cfg, n_frames, **kwargs),
+                   interleaved, dtype)
+
+
+def write_wideband_capture(path: str, cfg: RadarConfig, n_frames: int,
+                           interleaved: bool | None = None,
+                           dtype=np.float32, **kwargs) -> None:
+    """Write a synthetic wideband capture (wideband_capture_arrays; its
+    keyword arguments pass through) in the layout of write_synth_capture,
+    HDF5 or, for a ``.zarr`` path, a zarr v2 directory store."""
+    _write_capture(path, cfg, *wideband_capture_arrays(cfg, n_frames,
+                                                      **kwargs),
+                   interleaved, dtype)

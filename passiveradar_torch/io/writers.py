@@ -9,7 +9,8 @@ plus an .npz with frame_timestamps /
 range_bins / doppler_bins axes. The doppler_bins axis has
 num_doppler_cells entries centred on zero, except under
 cfg.strict_frame_parity, which replicates the reference's doubled axis
-(main.py:202-203).
+(main.py:202-203). ``AbsMapStack`` and ``load_maps`` read a stack back as
+float32 magnitudes, for the post-processing CLIs.
 """
 
 from __future__ import annotations
@@ -99,3 +100,50 @@ class MapWriter:
     def close(self):
         if self._h5 is not None:
             self._h5.close()
+
+
+def _open_maps(cfg: RadarConfig, path: str | None):
+    """(dataset, h5py file or None) of a map stack: a zarr array through
+    zarr_backend(), or '/xambg' of an HDF5 file (h5py imported here)."""
+    path = path or cfg.range_doppler_map_fname
+    if cfg.range_doppler_map_ftype == "zarr":
+        return zarr_backend().open(path, mode="r"), None
+    import h5py
+    f = h5py.File(path, "r")
+    return f["/xambg"], f
+
+
+class AbsMapStack:
+    """Lazily sliceable |xambg| view over a map file (hdf5 or zarr).
+
+    Exposes ``.shape`` and numpy basic slicing returning float32 magnitudes,
+    reading only the requested frames from disk: the streaming renderer's
+    input contract (viz/render.iter_display_frames), so a capture-scale
+    stack renders at O(chunk) host memory instead of load_maps' O(capture).
+    """
+
+    def __init__(self, cfg: RadarConfig, path: str | None = None):
+        self._ds, self._h5 = _open_maps(cfg, path)
+        self.shape = tuple(self._ds.shape)
+
+    def __getitem__(self, key) -> np.ndarray:
+        return np.abs(np.asarray(self._ds[key])).astype(np.float32)
+
+    def close(self):
+        if self._h5 is not None:
+            self._h5.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def load_maps(cfg: RadarConfig, path: str | None = None) -> np.ndarray:
+    """Load the |CAF| frame stack the way the post-processing scripts do
+    (reference range_doppler_plot.py:40-48): abs(xambg) as
+    (num_doppler, num_range+1, num_frames) float32."""
+    with AbsMapStack(cfg, path) as stack:
+        return stack[:, :, :]

@@ -23,7 +23,8 @@ import torch
 
 from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
-from passiveradar_torch.detect.trackers import init_tracks, multitarget_step
+from passiveradar_torch.detect.trackers import init_tracks, \
+    multitarget_step, to_host
 from passiveradar_torch.ops.caf import fast_xambg, resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.util import to_host_complex
@@ -57,11 +58,6 @@ def _fetch_summary(tracks) -> dict:
         "estimate": a[:, 2:4],
         "measurement": a[:, 4:6],
     }
-
-
-def _to_host(tree):
-    return {k: _to_host(v) if isinstance(v, dict) else v.cpu().numpy()
-            for k, v in tree.items()}
 
 
 @dataclasses.dataclass
@@ -158,7 +154,7 @@ class StreamingProcessor:
             frame_index=idx,
             caf=to_host_complex(caf),
             cfar=cf.cpu().numpy(),
-            tracks=_to_host(self._tracks),
+            tracks=to_host(self._tracks),
         )
 
     def fetch_maps(self):

@@ -1,0 +1,302 @@
+"""Wideband / multi-illuminator processing (counterpart of the JAX package's
+wideband.py; BASELINE configs 4 and 5).
+
+For wideband captures (DVB-T-class bands, or a band spanning several FM
+stations) the capture is first split by the polyphase channelizer
+(ops/channelizer.py); each channel then runs its own clutter-cancellation +
+CAF chain. Where the JAX package ``vmap``s the chain over channels (and
+frames), here every selected channel of every frame is one row of a single
+(F·S, n) batch through ``ls_filter_multiple`` and ``fast_xambg``, which
+take batches.
+
+Surfaces:
+  * ``process_wideband_frame``: the core library op (explicit parameters).
+  * ``wideband_frames`` / ``run_wideband_capture``: the config-driven batch
+    pipeline and host loop (activated by ``wideband_channels`` in the YAML;
+    per-channel output stacks land in ``<output>.chK.<ftype>``).
+  * ``WidebandStreamingProcessor``: real-time push-per-CPI processing with
+    per-channel CAF + CFAR + multitarget tracking.
+
+The JAX package's ``_to_complex`` is ``ops/util.as_complex`` here. Its
+channel-sharded ``wideband_frames_shmap`` (``mesh=``) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from passiveradar_torch._device import on_device, resolve_device
+from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.detect.trackers import init_tracks, \
+    multitarget_step, to_host
+from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops.cfar import cfar_2d
+from passiveradar_torch.ops.channelizer import channelize_pair
+from passiveradar_torch.ops.clutter import ls_filter_multiple
+from passiveradar_torch.ops.util import as_complex, to_host_complex
+from passiveradar_torch.pipeline import _window_tensor
+from passiveradar_torch.streaming import DETAILS, StreamResult, \
+    _fetch_summary
+
+
+def process_wideband_frame(ref, srv, n_channels: int, range_bins: int,
+                           freq_bins: int, filter_len: int,
+                           sample_rate: float, doppler_bins: tuple = (0,),
+                           window=None, device=None) -> torch.Tensor:
+    """One wideband CPI → per-channel range-Doppler maps (K, nf, R+1).
+
+    ref/srv: (N,) wideband complex64 at ``sample_rate`` (tensors stay on
+    their device; numpy goes to ``device``, the CUDA card by default). Each
+    of the K critically sampled channels is clutter-cancelled against its
+    own reference channel and correlated into a CAF frame. Samples past the
+    last whole multiple of freq_bins in a channel are dropped.
+    """
+    refc, srvc = channelize_pair(ref, srv, n_channels, device=device)
+    m = refc.shape[0]
+    ch_rate = float(sample_rate) / n_channels
+    usable = (m // freq_bins) * freq_bins
+    refc = refc[:usable].T.contiguous()          # (K, M)
+    srvc = srvc[:usable].T.contiguous()
+    win = resolve_window(window, usable)
+    if isinstance(win, np.ndarray):
+        win = torch.from_numpy(win).to(refc.device)
+    clean = ls_filter_multiple(refc, srvc, filter_len, ch_rate, doppler_bins)
+    return fast_xambg(refc, clean, range_bins, freq_bins, window=win)
+
+
+def integrate_channels(maps: torch.Tensor) -> torch.Tensor:
+    """Noncoherent multi-illuminator integration: Σ_k |CAF_k| over channels.
+
+    Valid when the channels share the bistatic geometry (same transmitter
+    site); range cells are in per-channel sample units, identical across
+    channels because all channels share one sample rate.
+    """
+    return maps.abs().sum(dim=0)
+
+
+# --------------------------------------------------------------------------
+# config-driven pipeline (BASELINE config 4)
+# --------------------------------------------------------------------------
+
+def channel_path(cfg: RadarConfig, k: int) -> str:
+    """Output stack path for PFB channel k (plot/track tools read these)."""
+    return f"{cfg.output_fname}.ch{k}.{cfg.range_doppler_map_ftype}"
+
+
+def integrated_path(cfg: RadarConfig) -> str:
+    """Output stack path for the noncoherently integrated multi-channel map
+    (integrate_channels over the selected channels; same /xambg contract as
+    a per-channel stack, so the plot/track tools read it unchanged)."""
+    return f"{cfg.output_fname}.integrated.{cfg.range_doppler_map_ftype}"
+
+
+def channel_inputs(raw_ref, raw_srv, cfg: RadarConfig, device=None):
+    """Channelize a wideband frame batch and keep the selected channels:
+    raw_* (F, N) complex64 or (F, N, 2) float32 IQ pairs →
+    (F·len(select), cpi_samples) complex64 ref and srv, frame-major."""
+    sel = list(cfg.wideband_channel_select)
+    refc, srvc = channelize_pair(
+        as_complex(on_device(raw_ref, device)),
+        as_complex(on_device(raw_srv, device)), cfg.wideband_channels,
+        taps_per_branch=cfg.wideband_taps_per_branch)        # (F, m, K)
+
+    def pick(c):
+        return c.transpose(1, 2)[:, sel].reshape(-1, cfg.cpi_samples)
+
+    return pick(refc), pick(srvc)
+
+
+def channel_clean(refc: torch.Tensor, srvc: torch.Tensor,
+                  cfg: RadarConfig) -> torch.Tensor:
+    """The per-channel LS clutter canceller over a (B, cpi_samples) batch of
+    channels (the JAX package's default impl and solver, whatever
+    cfg.clutter_method says, as there)."""
+    return ls_filter_multiple(refc, srvc, cfg.num_range_cells,
+                              cfg.IF_sample_rate, cfg.clutter_doppler_bins)
+
+
+def channel_caf(refc: torch.Tensor, clean: torch.Tensor,
+                cfg: RadarConfig) -> torch.Tensor:
+    """The per-channel windowed CAF over a (B, cpi_samples) batch →
+    (B, num_doppler_cells, num_range_cells+1) complex64."""
+    win = _window_tensor(cfg.caf_window, cfg.cpi_samples, refc.device)
+    return fast_xambg(refc, clean, cfg.num_range_cells,
+                      cfg.num_doppler_cells, window=win,
+                      short_filt=cfg.caf_short_filt)
+
+
+def wideband_frames(raw_ref, raw_srv, cfg: RadarConfig,
+                    device=None) -> torch.Tensor:
+    """Wideband frame batch → per-channel range-Doppler maps.
+
+    raw_*: (F, N) complex64 or (F, N, 2) float32 IQ pairs with
+    N = wideband_channels · cpi_samples (one full CPI per frame: wideband
+    CPIs are non-overlapping, config._derive_wideband); tensors stay on
+    their device, numpy goes to ``device`` (the CUDA card by default).
+    Returns (F, len(select), num_doppler_cells, num_range_cells+1)
+    complex64.
+    """
+    refc, srvc = channel_inputs(raw_ref, raw_srv, cfg, device)
+    maps = channel_caf(refc, channel_clean(refc, srvc, cfg), cfg)
+    return maps.reshape((-1, len(cfg.wideband_channel_select))
+                        + maps.shape[1:])
+
+
+def run_wideband_capture(reader, cfg: RadarConfig,
+                         batch_frames: int | None = None,
+                         writers: dict | None = None,
+                         progress: bool = True, integrate: bool = False,
+                         device=None) -> int:
+    """Host loop: stream a wideband capture into per-channel map stacks on
+    ``device`` (default: the CUDA card).
+
+    ``writers``: {channel_index: MapWriter-like} (default: one MapWriter per
+    selected channel at channel_path(cfg, k)). Every batch has one fixed
+    shape (a zero-padded final batch). ``integrate``: also write the
+    noncoherently integrated multi-illuminator stack (integrate_channels,
+    summed on the device before the copy to the host) to
+    integrated_path(cfg), in the same /xambg file contract. Returns the
+    number of CPIs.
+    """
+    from passiveradar_torch.io.hdf5 import PrefetchReader
+    from passiveradar_torch.io.writers import MapWriter
+
+    dev = resolve_device(device)
+    total = min(reader.num_frames, cfg.num_frames)
+    bf = batch_frames or cfg.frame_batch
+    select = cfg.wideband_channel_select
+    own_writers = writers is None
+    if own_writers:
+        writers = {k: MapWriter(cfg, total, channel_path(cfg, k))
+                   for k in select}
+    int_writer = MapWriter(cfg, total, integrated_path(cfg)) \
+        if integrate else None
+
+    batches = [(s, min(bf, total - s)) for s in range(0, total, bf)]
+    prefetch = PrefetchReader(reader, batches, mode="iq")
+    lc = cfg.input_chunk_length // 2
+    buf_ref = np.zeros((bf, lc), np.complex64)
+    buf_srv = np.zeros((bf, lc), np.complex64)
+    done = 0
+    try:
+        for start, count, (ref_raw, srv_raw) in prefetch:
+            buf_ref[:count] = ref_raw
+            buf_srv[:count] = srv_raw
+            buf_ref[count:] = 0
+            buf_srv[count:] = 0
+            maps_dev = wideband_frames(buf_ref, buf_srv, cfg, device=dev)
+            maps = maps_dev[:count].cpu().numpy()    # (count, S, nf, R+1)
+            for i, k in enumerate(select):
+                writers[k].write(maps[:, i], start)
+            if int_writer is not None:
+                integ = maps_dev[:count].abs().sum(dim=1).cpu().numpy()
+                int_writer.write(integ.astype(np.complex64), start)
+            done += count
+            if progress:
+                print(f"\r  processed {done}/{total} wideband CPIs", end="",
+                      flush=True)
+    finally:
+        if own_writers:
+            for w in writers.values():
+                w.close()
+        if int_writer is not None:
+            int_writer.close()
+    if progress:
+        print()
+    return total
+
+
+# --------------------------------------------------------------------------
+# streaming multi-illuminator mode (BASELINE config 5)
+# --------------------------------------------------------------------------
+
+class WidebandStreamingProcessor:
+    """Real-time wideband processor: one push per wideband CPI.
+
+    Each push channelizes the CPI, runs per-channel clutter + CAF + CFAR as
+    one batch on ``device`` (default: the CUDA card), then advances an
+    independent multitarget tracker per selected channel (each illuminator
+    has its own bistatic geometry). Unlike the narrowband
+    StreamingProcessor there is no one-frame latency: wideband CPIs are
+    non-overlapping, so results return immediately.
+    """
+
+    def __init__(self, cfg: RadarConfig, n_tracks: int = 10,
+                 cfar_kernel: tuple = (18, 4), detail: str = "full",
+                 device=None):
+        if cfg.wideband_channels < 2:
+            raise ValueError("cfg.wideband_channels must be >= 2; "
+                             "set it in the YAML to enable wideband mode")
+        if detail not in DETAILS:
+            raise ValueError(f"unknown detail mode {detail!r}")
+        self.dev = resolve_device(device)
+        self.cfg = cfg
+        self.n_tracks = n_tracks
+        self.cfar_kernel = cfar_kernel
+        self.detail = detail
+        self._last_maps = None
+        self._tracks = {k: init_tracks(n_tracks, self.dev)
+                        for k in cfg.wideband_channel_select}
+        self._extent = torch.tensor(
+            (cfg.max_doppler_actual, cfg.max_range_actual),
+            dtype=torch.float32, device=self.dev)
+        self._index = 0
+
+    def maps(self, raw_ref, raw_srv):
+        """One wideband CPI → per-channel (caf, cfar) stacks on the device,
+        each (len(select), num_doppler_cells, num_range_cells+1)."""
+        maps = wideband_frames(on_device(raw_ref, self.dev)[None],
+                               on_device(raw_srv, self.dev)[None],
+                               self.cfg)[0]
+        return maps, cfar_2d(maps.abs(), *self.cfar_kernel)
+
+    def track(self, cf: torch.Tensor) -> None:
+        """Advance every selected channel's tracker by its CFAR frame."""
+        for i, k in enumerate(self.cfg.wideband_channel_select):
+            self._tracks[k] = multitarget_step(
+                self._tracks[k], cf[i], self._extent, self.n_tracks,
+                self.cfg.candidate_budget)
+
+    def push(self, raw_ref, raw_srv,
+             detail: Optional[str] = None) -> dict:
+        """Feed one wideband CPI per radar channel (complex64 of
+        wideband_channels·cpi_samples, or its float32 IQ-pair view; numpy or
+        a tensor, which is not copied through the host). Returns
+        {channel_index: StreamResult} for this CPI. ``detail`` overrides the
+        constructor's for this push: in "summary" mode the per-channel map
+        and table copies are skipped and each StreamResult carries only the
+        packed track summary; the maps stay on the device, fetchable with
+        fetch_maps()."""
+        detail = self.detail if detail is None else detail
+        if detail not in DETAILS:
+            raise ValueError(f"unknown detail mode {detail!r}")
+        maps, cf = self.maps(raw_ref, raw_srv)
+        self._last_maps = (maps, cf)
+        self.track(cf)
+        results = {}
+        for i, k in enumerate(self.cfg.wideband_channel_select):
+            if detail == "summary":
+                results[k] = StreamResult(
+                    frame_index=self._index, caf=None, cfar=None,
+                    tracks=None, summary=_fetch_summary(self._tracks[k]))
+            else:
+                results[k] = StreamResult(
+                    frame_index=self._index,
+                    caf=to_host_complex(maps[i]),
+                    cfar=cf[i].cpu().numpy(),
+                    tracks=to_host(self._tracks[k]))
+        self._index += 1
+        return results
+
+    def fetch_maps(self) -> dict | None:
+        """Copy the latest CPI's per-channel (caf, cfar) maps to the host:
+        the on-demand companion to detail="summary" pushes. Returns
+        {channel_index: (caf, cfar)}, or None before the first push."""
+        if self._last_maps is None:
+            return None
+        maps, cf = self._last_maps
+        return {k: (to_host_complex(maps[i]), cf[i].cpu().numpy())
+                for i, k in enumerate(self.cfg.wideband_channel_select)}

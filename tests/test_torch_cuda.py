@@ -437,3 +437,94 @@ def test_streaming_card_matches_cpu(cuda):
                                       want.tracks["status"])
         np.testing.assert_array_equal(got.tracks["lifetime"],
                                       want.tracks["lifetime"])
+
+
+# ----------------------------------------- post-processing and wideband
+
+
+def _map_stack(seed, nf=64, nr=40, frames=24, targets=((30, 12), (12, 40))):
+    """A (doppler, range, frames) stack of noise with fixed point targets
+    at (range row, Doppler row) cells, strong enough to be tracked."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((nf, nr, frames)) * 0.2 + 1.0).astype(np.float32)
+    for r, d in targets:
+        x[d, r, :] = 60.0
+    return x
+
+
+@pytest.mark.cuda
+def test_cfar_stack_and_display_card_match_cpu(cuda):
+    """cfar_stack, persistence_stack and the streamed display frames on the
+    card against the CPU: rtol 1e-5 for CFAR (sums in another order), 1e-6
+    for persistence (the same multiply-adds)."""
+    from passiveradar_torch.cli.plot import LazyCFAR, cfar_stack
+    from passiveradar_torch.viz import persistence_stack
+    from passiveradar_torch.viz.render import (iter_display_frames,
+                                               prepare_display_frames)
+    x = _map_stack(11)
+    cf_card = cfar_stack(x, device=cuda)
+    cf_cpu = cfar_stack(x, device="cpu")
+    np.testing.assert_allclose(cf_card, cf_cpu, rtol=1e-5)
+    frames = torch.from_numpy(np.moveaxis(cf_cpu, 2, 0).copy())
+    got = persistence_stack(frames.to(cuda), 20, 0.9).cpu().numpy()
+    want = persistence_stack(frames, 20, 0.9).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    shown = np.stack(list(iter_display_frames(LazyCFAR(x, device=cuda),
+                                              chunk=5, device=cuda)))
+    np.testing.assert_allclose(
+        shown, prepare_display_frames(cf_cpu, device="cpu"), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [False, True])
+def test_batch_trackers_card_match_cpu(cuda, strict):
+    """Both batch trackers on the card against the CPU on the same CFAR
+    stack: statuses, lifetimes, histories, lock modes and measured cells
+    equal; estimates within 1e-3."""
+    from passiveradar_torch.cli.plot import cfar_stack
+    from passiveradar_torch.detect.trackers import (multitarget_tracker,
+                                                    simple_target_tracker,
+                                                    to_host)
+    cf = cfar_stack(_map_stack(12), device="cpu")
+    kw = dict(frames_last=True)
+    got = to_host(multitarget_tracker(cf, (32.0, 100.0), 6, 64, device=cuda,
+                                      **kw))
+    want = to_host(multitarget_tracker(cf, (32.0, 100.0), 6, 64,
+                                       device="cpu", **kw))
+    for k in ("status", "lifetime", "history"):
+        np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_allclose(got["estimate"], want["estimate"], atol=1e-3)
+    assert (got["status"][-1] == 2).sum() >= 2
+    got = to_host(simple_target_tracker(cf, 100.0, 32.0, strict=strict,
+                                        device=cuda, **kw))
+    want = to_host(simple_target_tracker(cf, 100.0, 32.0, strict=strict,
+                                         device="cpu", **kw))
+    for k in ("lock_mode", "meas_idx"):
+        np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_allclose(got["estimate"], want["estimate"], atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_wideband_cpi_card_matches_cpu(cuda):
+    """One wideband CPI (4 channels of 16,384 Hz, a station in channels 1
+    and 2, one echo) on the card against the CPU: the argmax cell equal in
+    each channel, maps within 2e-4 of the peak (the LS canceller's float32
+    conditioning, ROADMAP §C)."""
+    from passiveradar_torch.io.synthetic import wideband_capture_arrays
+    from passiveradar_torch.wideband import wideband_frames
+    cfg = derive_config(dict(
+        input_sample_rate=65536, input_center_freq=0, channel_freq=0,
+        channel_bandwidth=65536, cpi_seconds_nominal=0.25,
+        max_doppler_nominal=128.0, max_range_nominal=600.0,
+        wideband_channels=4, wideband_channel_select=(1, 2)))
+    ref, srv = wideband_capture_arrays(cfg, 1, delay_samples=48,
+                                       doppler_hz=40.0, seed=3)
+    ref = ref.view(np.complex64)[None]
+    srv = srv.view(np.complex64)[None]
+    got = wideband_frames(ref, srv, cfg, device=cuda).cpu().numpy()
+    want = wideband_frames(ref, srv, cfg, device="cpu").numpy()
+    for i in range(2):
+        g, w = np.abs(got[0, i]), np.abs(want[0, i])
+        assert np.unravel_index(np.argmax(g), g.shape) == \
+            np.unravel_index(np.argmax(w), w.shape)
+        assert np.max(np.abs(got[0, i] - want[0, i])) <= 2e-4 * np.max(w)

@@ -24,11 +24,13 @@ def _modules():
 
 
 def test_import_pulls_in_no_jax():
-    """A fresh interpreter imports every module of the port, with h5py
-    blocked; neither jax nor passiveradar_tpu may end up in sys.modules."""
+    """A fresh interpreter imports every module of the port, with h5py and
+    matplotlib blocked; neither jax nor passiveradar_tpu may end up in
+    sys.modules."""
     code = (
         "import importlib, sys\n"
         "sys.modules['h5py'] = None   # the card's host may lack h5py\n"
+        "sys.modules['matplotlib'] = None   # imported when rendering only\n"
         f"for m in {list(_modules())!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -77,6 +79,41 @@ def test_default_device_raises_without_cuda(tmp_path):
         find_channel_offset(np.ones(64, np.complex64),
                             np.ones(64, np.complex64), 1, 4)
 
+    # the post-processing and wideband entry points
+    from passiveradar_torch import wideband as wb
+    from passiveradar_torch.cli.plot import LazyCFAR, cfar_stack
+    from passiveradar_torch.detect.trackers import (multitarget_tracker,
+                                                    simple_target_tracker)
+    from passiveradar_torch.ops.channelizer import channelize
+    from passiveradar_torch.viz.persistence import persistence
+    from passiveradar_torch.viz.render import (iter_display_frames,
+                                               prepare_display_frames)
+    stack = np.ones((8, 6, 2), np.float32)
+    wcfg = derive_config(dict(input_sample_rate=65536, channel_freq=0,
+                              input_center_freq=0, channel_bandwidth=65536,
+                              cpi_seconds_nominal=0.25,
+                              max_doppler_nominal=128.0,
+                              max_range_nominal=150.0, wideband_channels=4))
+    wide = np.zeros((1, wcfg.input_chunk_length // 2), np.complex64)
+    calls = [
+        lambda: cfar_stack(stack),
+        lambda: LazyCFAR(stack),
+        lambda: multitarget_tracker(stack, (1.0, 1.0), frames_last=True),
+        lambda: simple_target_tracker(stack, 1.0, 1.0, frames_last=True),
+        lambda: persistence(stack, 1, 2, 0.9),
+        lambda: next(iter_display_frames(stack)),
+        lambda: prepare_display_frames(stack),
+        lambda: channelize(np.ones(64, np.complex64), 4),
+        lambda: wb.wideband_frames(wide, wide, wcfg),
+        lambda: wb.process_wideband_frame(wide[0], wide[0], 4, 8, 64, 6,
+                                          65536.0),
+        lambda: wb.run_wideband_capture(None, wcfg),
+        lambda: wb.WidebandStreamingProcessor(wcfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
 
 def test_cli_default_device_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
@@ -90,3 +127,18 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
         channel_bandwidth=12800, cpi_seconds_nominal=1.0)))
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", str(cfg_path)])
+
+    # the post-processing CLIs, and cli.wideband and cli.stream on a
+    # wideband configuration
+    from passiveradar_torch.cli import plot, stream, track_multi, \
+        track_simple, wideband
+    wide_path = tmp_path / "w.yaml"
+    wide_path.write_text(yaml.safe_dump(dict(
+        input_file=str(tmp_path / "missing.hdf5"), input_sample_rate=65536,
+        input_center_freq=0, channel_freq=0, channel_bandwidth=65536,
+        cpi_seconds_nominal=0.25, wideband_channels=4)))
+    for cli, path in ((plot, cfg_path), (track_multi, cfg_path),
+                      (track_simple, cfg_path), (wideband, wide_path),
+                      (stream, wide_path)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--config", str(path)])

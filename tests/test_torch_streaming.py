@@ -250,12 +250,21 @@ def test_stream_cli_matches_jax(captures, capsys, detail):
     assert res["tracks"]["status"].shape == (N_TRACKS,)
 
 
-def test_stream_cli_refuses_wideband_and_bad_device(captures):
+def test_stream_cli_refuses_wideband_and_bad_device(captures, capsys):
+    """A wideband configuration streams through the wideband processor
+    (refused until the wideband path was ported): one result a selected
+    channel per CPI. A device other than cuda or cpu is refused."""
     from passiveradar_torch.cli.stream import main as t_main
     params = yaml.safe_load(captures["T"].read_text())
     wide = captures["T"].with_name("wide.yaml")
     wide.write_text(yaml.safe_dump(dict(params, wideband_channels=4)))
-    with pytest.raises(SystemExit):
-        t_main(["--config", str(wide), "--device", "cpu"])
+    capsys.readouterr()
+    res = t_main(["--config", str(wide), "--device", "cpu",
+                  "--max-frames", "1", "--tracks", "3"])
+    out = capsys.readouterr().out
+    assert res["frames"] == 1 and len(res["push_ms"]) == 1
+    assert sorted(res["tracks"]) == [0, 1, 2, 3]
+    assert res["tracks"][3]["status"].shape == (3,)
+    assert "Wideband streaming" in out and "frame    0 ch3:" in out
     with pytest.raises(SystemExit):
         t_main(["--config", str(captures["T"]), "--device", "tpu"])
