@@ -58,11 +58,26 @@ Phases, one JSON line each; any failure exits non-zero:
    device memory; then one batch under torch.profiler (kernel launches,
    device busy and idle share, the heaviest kernels) and the preprocess
    stage alone (every kernel by name); then the LS batch on
-   cuFFT and on the fused FFT in turns, and one profiled fused batch.
+   cuFFT and on the fused FFT in turns, and one profiled fused batch;
+9. cancellers: the steady-state FM batch through every clutter_impl
+   (carry, coupled, segment) × clutter_solver (levinson, gs_matrix,
+   gs_dense, cholesky), the clutter stage's median ms and peak memory, each
+   map stack against carry/levinson's (ALT_TOL, argmax equal); one 3-frame
+   FM batch with coupled + gs_dense + the flattop CAF, card against CPU;
+10. alternative paths: the FM capture through ``cli.process`` with
+   coupled + gs_dense + ``caf_short_filt: false`` (launch counts, the
+   strong peak, the weak one reported, the flattop CAF stage against the
+   boxcar's in turns) and through ``cli.stream`` with segment + the
+   flattop CAF (a confirmed track at the strong target, push latency, each
+   streamed CAF against ``process_frames``), and one wideband CPI with the
+   flattop CAF, card against CPU;
+11. ops_rest: ls_filter, ls_filter_svd, ls_filter_toeplitz, gal_jpe (µs a
+   sample), direct_xambg, decimate_taps, offset_compensation and
+   channel_preprocessing at small sizes, card against CPU, ms each.
 
-Then the ``{"kernels": [...]}`` line (each kernel's launches on the
-main path and, in ``launches_by_path``, on every path that runs it), the
-nvidia-smi line and, last,
+Then the script's seconds, the ``{"kernels": [...]}`` line (each
+kernel's launches on the main path and, in ``launches_by_path``, on every
+path that runs it), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -166,6 +181,14 @@ WIDE_DOPPLER_CELLS = 6
 # of the tracker's cells of the echo's cell, in range and in Doppler
 ECHO_GATE_CELLS = 1.5
 WIDE_TOL = 2e-4          # one CPI, card vs CPU, over the channel's peak
+# the other cancellers and the flattop CAF: every clutter_impl ×
+# clutter_solver against carry/levinson on the card, and a batch on the
+# card against the CPU, within the golden pipeline bound
+# (tests/test_golden_e2e.py:93-100): LS amplifies each solver's float32
+# rounding at FM (ROADMAP §C)
+ALT_TOL = 2e-3
+CANCELLER_RUNS = 3       # timed runs of the clutter stage per impl × solver
+OPS_TOL = 1e-4           # the remaining ops, card vs CPU, over the peak
 
 
 def emit(obj):
@@ -1847,7 +1870,322 @@ def profile_batch(torch, pl, ref, srv, ph, cfg):
               **t))
 
 
+def alt_params(params, impl, solver, short_filt, tag):
+    """The FM parameters with another canceller and CAF, writing to their
+    own map store."""
+    return dict(params, clutter_impl=impl, clutter_solver=solver,
+                caf_short_filt=short_filt,
+                output_fname=os.path.join(WORK, f"XAMBG_{tag}"))
+
+
+def compare_to(got, want):
+    """(max |got − want| over the peak |want|, argmax equal in every
+    frame) for (F, doppler, range) map stacks."""
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    same = all(np.argmax(np.abs(got[i])) == np.argmax(np.abs(want[i]))
+               for i in range(want.shape[0]))
+    return rel, same
+
+
+def phase_cancellers(torch, dev, params):
+    """One device-resident FM batch (BATCH + 2 halo frames) through every
+    clutter_impl × clutter_solver: the clutter stage's median ms over
+    CANCELLER_RUNS runs, its peak device memory, and each map stack (the
+    boxcar CAF) against carry/levinson's on the card (ALT_TOL of the peak,
+    argmax equal in every frame); then one 3-frame FM batch with coupled +
+    gs_dense + the flattop CAF, the card against the CPU under the same
+    bound."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops.clutter import IMPLS, SOLVERS
+
+    base = derive_config(params)
+    reader = CaptureReader(base, estimate_offset=False, device=dev)
+    f = BATCH + 2
+    ref_np, srv_np = reader.read_pair_frames(0, f)
+    reader.close()
+    ph = torch.from_numpy(pl.frame_phases(base, list(range(f)))).to(dev)
+    r = pl._preprocess_impl(torch.from_numpy(ref_np).to(dev), ph, base)
+    s = pl._preprocess_impl(torch.from_numpy(srv_np).to(dev), ph, base)
+    rows, base_maps, bad = [], None, []
+    for impl in IMPLS:
+        for solver in SOLVERS:
+            cfg = derive_config(alt_params(params, impl, solver, True, "x"))
+            clean = pl._clutter_impl(r, s, cfg)            # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            ms = []
+            for _ in range(CANCELLER_RUNS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                clean = pl._clutter_impl(r, s, cfg)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            maps = pl._caf_batch_impl(r, clean, cfg).cpu().numpy()
+            del clean
+            if base_maps is None:       # IMPLS[0], SOLVERS[0]: carry, levinson
+                base_maps = maps
+            rel, same = compare_to(maps, base_maps)
+            ok = bool(np.all(np.isfinite(maps)) and rel < ALT_TOL and same)
+            row = dict(impl=impl, solver=solver,
+                       clutter_ms_median=float(np.median(ms)),
+                       clutter_ms_runs=ms, peak_bytes_above_inputs=peak,
+                       rel_err_vs_carry_levinson=rel, argmax_equal=same)
+            rows.append(row)
+            emit(dict(phase="cancellers", buffer_frames=f, **row))
+            if not ok:
+                bad.append(row)
+    if bad:
+        raise AssertionError(f"cancellers against carry/levinson: {bad}")
+
+    # one 3-frame FM batch, coupled + gs_dense + flattop, card vs CPU
+    cfg = derive_config(alt_params(params, "coupled", "gs_dense", False, "x"))
+    nfr = 3
+    ph3 = pl.frame_phases(cfg, list(range(nfr)))
+    got = pl.process_frames(ref_np[:nfr], srv_np[:nfr], ph3, cfg,
+                            device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    want = pl.process_frames(ref_np[:nfr], srv_np[:nfr], ph3, cfg,
+                             device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    rel, same = compare_to(got, want)
+    emit(dict(phase="cancellers_parity", geometry="fm", frames=nfr,
+              clutter_impl="coupled", clutter_solver="gs_dense",
+              caf_short_filt=False, rel_err=rel, argmax_equal=same,
+              tol=ALT_TOL, cpu_seconds=cpu_s))
+    if not (np.all(np.isfinite(got)) and rel < ALT_TOL and same):
+        raise AssertionError(f"coupled/gs_dense/flattop card vs CPU: rel "
+                             f"{rel}, argmax {same}")
+    return rows
+
+
+def phase_main_path_alt(torch, dev, params):
+    """The FM capture through cli.process with clutter_impl: coupled,
+    clutter_solver: gs_dense and caf_short_filt: false, on the card: every
+    kernel's launches (counted from 0 just before the run), the
+    ground-truth peaks, then the flattop CAF stage of one device-resident
+    batch against the boxcar's (median ms, peak memory)."""
+    import yaml
+
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.cli.process import main as process_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io import zarr_min
+    from passiveradar_torch.io.hdf5 import CaptureReader
+
+    p = alt_params(params, "coupled", "gs_dense", False, "alt")
+    cfg = derive_config(p)
+    cfg_path = os.path.join(WORK, "alt.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(p, fh)
+    batches = -(-FRAMES // BATCH)
+    zero_counts()
+    t0 = time.perf_counter()
+    n = process_main(["--config", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname, mode="r"))
+    finite = bool(np.all(np.isfinite(stack)))
+    strong, weak, weak_row = ground_truth_peaks(stack)
+
+    # the CAF stage of one batch: flattop against boxcar, in turns
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    f = BATCH + 2
+    ref_np, srv_np = reader.read_pair_frames(0, f)
+    reader.close()
+    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+    r = pl._preprocess_impl(torch.from_numpy(ref_np).to(dev), ph, cfg)
+    s = pl._clutter_impl(r, pl._preprocess_impl(
+        torch.from_numpy(srv_np).to(dev), ph, cfg), cfg)
+    box = derive_config(dict(p, caf_short_filt=True))
+    caf = {}
+    for c, name in ((cfg, "flattop"), (box, "boxcar"), (box, "boxcar"),
+                    (cfg, "flattop")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        ms = cuda_ms(torch, lambda: pl._caf_batch_impl(r, s, c), 5, warmup=1)
+        caf.setdefault(name, dict(ms=[], peak_bytes=0))
+        caf[name]["ms"].append(ms)
+        caf[name]["peak_bytes"] = max(
+            caf[name]["peak_bytes"],
+            torch.cuda.max_memory_allocated() - base_mem)
+    emit(dict(phase="main_path_alt", clutter_impl="coupled",
+              clutter_solver="gs_dense", caf_short_filt=False, frames=n,
+              batches=batches, wall_s=wall, wall_frames_per_s=n / wall,
+              launches=launches, finite=finite, strong_peak=strong,
+              weak_peak=weak, weak_row_cells_118_122=weak_row,
+              caf_stage_ms_per_batch=caf, buffer_frames=f))
+    if n != FRAMES or not finite:
+        raise AssertionError(f"alt cli.process: {n} frames, finite {finite}")
+    if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
+                        fft_fused=0):
+        raise AssertionError(f"alt cli.process launches {launches}")
+    if strong != STRONG_CELL:
+        raise AssertionError(f"alt cli.process strong peak {strong}")
+    return launches
+
+
+def phase_stream_alt(torch, dev, params):
+    """The FM capture through cli.stream with clutter_impl: segment and
+    caf_short_filt: false: launch counts from 0, push latency, a confirmed
+    track at the strong target; every streamed CAF against process_frames
+    over the same frames (STREAM_TOL); then one wideband CPI (WIDE) with
+    the flattop CAF, the card against the CPU (WIDE_TOL)."""
+    import yaml
+
+    from passiveradar_torch.cli.stream import main as stream_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.io.synthetic import wideband_capture_arrays
+    from passiveradar_torch.pipeline import frame_phases, process_frames
+    from passiveradar_torch.streaming import StreamingProcessor
+    from passiveradar_torch.wideband import wideband_frames
+
+    p = alt_params(params, "segment", "levinson", False, "stream_alt")
+    cfg = derive_config(p)
+    cfg_path = os.path.join(WORK, "stream_alt.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(p, fh)
+    target = strong_target(cfg)
+    zero_counts()
+    res = stream_main(["--config", cfg_path, "--detail", "full"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    status = np.asarray(res["tracks"]["status"])
+    est = np.asarray(res["tracks"]["estimate"])
+    hits = [int(i) for i in np.where(status == 2)[0]
+            if abs(est[i, 0] - target[0]) < 4
+            and abs(est[i, 1] - target[1]) < 20]
+    lat = np.asarray(res["push_ms"])
+
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    ref_c, srv_c = reader.read_iq_frames(0, FRAMES)
+    ref_p, srv_p = reader.read_pair_frames(0, FRAMES)
+    reader.close()
+    batch = process_frames(ref_p, srv_p, frame_phases(cfg, list(range(FRAMES))),
+                           cfg, device=dev).abs().cpu().numpy()
+    sp = StreamingProcessor(cfg, device=dev)
+    rc = torch.from_numpy(ref_c).to(dev)
+    sc = torch.from_numpy(srv_c).to(dev)
+    streamed = [sp.push(rc[i], sc[i]) for i in range(FRAMES)]
+    streamed = [x for x in streamed if x is not None] + [sp.flush()]
+    errs = [float(np.max(np.abs(np.abs(x.caf) - batch[x.frame_index]))
+                  / np.max(batch[x.frame_index])) for x in streamed]
+    del batch, streamed
+
+    # one wideband CPI with the flattop CAF, card vs CPU
+    wcfg = derive_config(dict(WIDE, input_file="", output_fname="wb",
+                              caf_short_filt=False))
+    wref, wsrv = wideband_capture_arrays(
+        wcfg, 1, delay_samples=WIDE_DELAY * wcfg.wideband_channels,
+        doppler_hz=WIDE_DOPPLER_CELLS * wcfg.doppler_cell_width, seed=11)
+    wref = wref.view(np.complex64)[None]
+    wsrv = wsrv.view(np.complex64)[None]
+    wgot = wideband_frames(wref, wsrv, wcfg, device=dev).cpu().numpy()[0]
+    wwant = wideband_frames(wref, wsrv, wcfg, device="cpu").numpy()[0]
+    wide = [compare_to(wgot[i][None], wwant[i][None])
+            for i in range(wgot.shape[0])]
+    emit(dict(phase="stream_alt", clutter_impl="segment",
+              clutter_solver="levinson", caf_short_filt=False,
+              frames=res["frames"], launches=launches,
+              push_ms_median=float(np.median(lat)),
+              push_ms_max=float(lat.max()),
+              push_ms_steady_median=float(np.median(lat[1:-1])),
+              push_ms=lat.tolist(),
+              realtime=bool(lat.max() < 1e3 * cfg.frame_interval),
+              strong_target_km_hz=target, confirmed_at_strong_target=hits,
+              stream_vs_process_frames_max_rel=max(errs),
+              stream_tol=STREAM_TOL,
+              wideband_cpi_flattop_rel_by_channel=[w[0] for w in wide],
+              wideband_cpi_flattop_argmax_equal=[w[1] for w in wide],
+              wide_tol=WIDE_TOL))
+    if res["frames"] != FRAMES or launches != dict(
+            mix_regroup_matmul=2 * FRAMES, nlms_filter_pallas=0,
+            fft_fused=0):
+        raise AssertionError(f"alt stream: frames {res['frames']}, "
+                             f"launches {launches}")
+    if not hits:
+        raise AssertionError(f"alt stream: no confirmed track at {target}")
+    if not max(errs) < STREAM_TOL:
+        raise AssertionError(f"alt stream vs process_frames: {errs}")
+    if not all(w[1] and w[0] <= WIDE_TOL for w in wide):
+        raise AssertionError(f"wideband flattop CPI card vs CPU: {wide}")
+    return launches
+
+
+def phase_ops_rest(torch, dev):
+    """The remaining ops at small sizes, each on the card against the port
+    on the CPU (OPS_TOL of the peak), with the card's ms per call; gal_jpe
+    also per sample."""
+    from passiveradar_torch import ops
+    from scipy import signal as sps
+
+    rng = np.random.default_rng(9)
+
+    def cn(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    n = 16384
+    ref = cn(n)
+    srv = (0.8 * np.roll(ref, 3) + 0.1 * cn(n)).astype(np.complex64)
+    raw = (1000 * rng.standard_normal(2 * 65536)).astype(np.int16)
+    flattop = sps.firwin(10 * 512 + 1, 1.0 / 512, window="flattop")
+    x_dec = cn(1 << 18)
+    gal_n = 400
+    cases = [
+        ("ls_filter", dict(n=n, filter_len=32),
+         lambda a, b, d: ops.ls_filter(a, b, 32, device=d), (ref, srv)),
+        ("ls_filter_svd", dict(n=n, filter_len=32),
+         lambda a, b, d: ops.ls_filter_svd(a, b, 32, device=d), (ref, srv)),
+        ("ls_filter_toeplitz", dict(n=n, filter_len=32),
+         lambda a, b, d: ops.ls_filter_toeplitz(a, b, 32, device=d),
+         (ref, srv)),
+        ("gal_jpe", dict(n=gal_n, lattice_len=6, delay_line_len=6),
+         lambda a, b, d: ops.gal_jpe(a, b, 6, 6, 1e-3, 1e-2, device=d),
+         (ref[:gal_n], srv[:gal_n])),
+        ("direct_xambg", dict(n=n, range_bins=40, freq_bins=64),
+         lambda a, b, d: ops.direct_xambg(a, b, 40, 64, float(n), device=d),
+         (ref, srv)),
+        ("decimate_taps", dict(n=1 << 18, q=512, taps=len(flattop)),
+         lambda a, b, d: ops.decimate_taps(a, flattop, 512, device=d),
+         (x_dec, None)),
+        ("offset_compensation", dict(n=n, ndec=1, nlag=64),
+         lambda a, b, d: ops.offset_compensation(a, b, n, 1, 64, device=d),
+         (ref, np.roll(ref, 17))),
+        ("channel_preprocessing", dict(n=65536, dec=4),
+         lambda a, b, d: ops.channel_preprocessing(a, 4, 5000.0, 262144.0,
+                                                   device=d), (raw, None)),
+    ]
+    bad = []
+    for name, shape, fn, (a, b) in cases:
+        got = fn(a, b, dev)
+        want = fn(a, b, "cpu").numpy()
+        ad = torch.from_numpy(a).to(dev)
+        bd = None if b is None else torch.from_numpy(b).to(dev)
+        iters = 2 if name == "gal_jpe" else 10
+        ms = cuda_ms(torch, lambda: fn(ad, bd, None), iters, warmup=1)
+        got = got.cpu().numpy()
+        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        row = dict(phase="ops_rest", op=name, shape=shape, ms=ms,
+                   rel_err_card_vs_cpu=rel, tol=OPS_TOL)
+        if name == "gal_jpe":
+            row["us_per_sample"] = ms * 1e3 / (gal_n - 10 - 1)
+        emit(row)
+        if not (np.all(np.isfinite(got)) and rel < OPS_TOL):
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"ops card vs CPU: {bad}")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1903,12 +2241,17 @@ def main() -> int:
         phase_ls_route_ab(torch, dev, cfg)
         phase_steady(torch, dev,
                      derive_config(dict(params, clutter_method="nlms_pallas")))
+        phase_cancellers(torch, dev, params)
+        process_alt = phase_main_path_alt(torch, dev, params)
+        stream_alt = phase_stream_alt(torch, dev, params)
+        phase_ops_rest(torch, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     row["launches"] = launches
     # every path's own count (set to 0 just before it): the maps that the
     # postprocess phase reads come from the LS cli.process run
-    later = dict(postprocess=post, **wide)
+    later = dict(postprocess=post, **wide, process_alt=process_alt,
+                 stream_alt=stream_alt)
     row["launches_by_path"] = dict(process_ls=launches,
                                    stream_ls_fused=stream["ls_multiple"]
                                    ["mix_regroup_matmul"],
@@ -1921,6 +2264,7 @@ def main() -> int:
     for r in (row, row_nlms, row_fft):
         r["launches_by_path"].update(
             {path: counts[r["name"]] for path, counts in later.items()})
+    emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": [row, row_nlms, row_fft]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,10 @@ import numpy as np
 import torch
 from scipy import signal as _spsignal
 
+from passiveradar_torch._device import on_device
 from passiveradar_torch.config import nextpow2
 from passiveradar_torch.ops.fft import fft_auto, ifft_auto
+from passiveradar_torch.ops.fir import design_lowpass
 
 
 def resolve_window(window, n: int):
@@ -94,6 +96,66 @@ def _doppler_transform(pre: torch.Tensor) -> torch.Tensor:
     return torch.fft.fftshift(torch.fft.fft(pre, dim=-2), dim=-2)
 
 
+def _flattop_blocks(taps: np.ndarray, d: int):
+    """The decimator's taps as C blocks of d for the block-polyphase CAF.
+
+    decimate_taps computes out[g] = Σ_j h[j]·x[g·d + half − j], half =
+    (L−1)//2. With hf the reversed taps, left pad pl = d·⌈(L−1−half)/d⌉ and
+    e = pl − (L−1−half) leading zeros, out[g] = Σ_c Σ_r B[c, r]·xp[(g+c)·d
+    + r], xp[u] = x[u − pl] and B[c, r] = hz[c·d + r]. Returns (B (C, d)
+    float32, pl)."""
+    length = len(taps)
+    off = length - 1 - (length - 1) // 2
+    pl = d * (-(-off // d))
+    e = pl - off
+    c = -(-(length + e) // d)
+    hz = np.zeros(c * d, np.float64)
+    hz[e:e + length] = np.asarray(taps, np.float64)[::-1]
+    return hz.reshape(c, d).astype(np.float32), pl
+
+
+def _fast_xambg_general(ref: torch.Tensor, srv: torch.Tensor, window,
+                        taps: np.ndarray, range_bins: int,
+                        freq_bins: int) -> torch.Tensor:
+    """The CAF with a general Doppler decimator (reference shortFilt=False:
+    the flattop taps), the JAX package's per-lag ``decimate_taps`` of the
+    lag product, in block-polyphase form.
+
+    Per lag k the decimated product is Σ_c Y_c[g + c] with Y_c[s] =
+    Σ_r B[c, r]·a[s·d + r − pl]·conj(srv[s·d + r − pl + R − k]), a the
+    windowed reference (zero outside the frame), srv circular: for each
+    tap block c this is the boxcar path's segment correlation of the rows
+    B[c]·a_s against (d+R)-sample srv windows, so all lags come from FFTs
+    of length ≥ d+R+1, and the C blocks sum in the frequency domain. Memory
+    is O(C·n) over the batch, not O(R·n).
+    """
+    b, n = ref.shape
+    nf, r = freq_bins, range_bins
+    d = n // nf
+    blocks, pl = _flattop_blocks(taps, d)
+    nc = blocks.shape[0]
+    rows = nf + nc - 1
+    a = ref if window is None else ref * window
+    # ap[u] = a[u − pl], zero outside; d-rows s = 0..rows−1
+    ap = torch.nn.functional.pad(a, (pl, max(0, rows * d - pl - n)))
+    aa = ap[:, :rows * d].reshape(b, rows, d)
+    # S_s[i] = conj(srv[(s·d − pl + i) mod n]), i < d + R: circular windows
+    sc = srv.conj()
+    reps = -(-(rows * d + r + pl) // n) + 1
+    ext = sc.repeat(1, reps)[:, (-pl) % n:]
+    s_win = ext.unfold(-1, d + r, d)[:, :rows]         # (B, rows, d + R)
+    fft_len = nextpow2(d + r + 1)
+    fs_ = fft_auto(s_win, fft_len)
+    bk = torch.from_numpy(blocks).to(ref.device)
+    acc = None
+    for c in range(nc):
+        fa_ = fft_auto((aa[:, c:c + nf] * bk[c]).conj(), fft_len)
+        term = fs_[:, c:c + nf] * fa_.conj()
+        acc = term if acc is None else acc + term
+    pre = ifft_auto(acc)[..., :r + 1]                 # [g, shift], R − k
+    return _doppler_transform(torch.flip(pre, [-1]))
+
+
 def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
                freq_bins: int, window=None,
                short_filt: bool = True) -> torch.Tensor:
@@ -101,11 +163,11 @@ def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
 
     ref/srv: (N,) or (B, N) complex64. Returns (freq_bins, range_bins+1) or
     (B, freq_bins, range_bins+1) complex64, matching the reference's
-    ``fast_xambg`` to float32 round-off. Only the short_filt=True boxcar
-    Doppler decimator (the pipeline default) is ported.
+    ``fast_xambg`` to float32 round-off. short_filt=True is the all-ones
+    (d+1)-tap Doppler decimator (the pipeline default) on the segment
+    correlation; short_filt=False the 10·d+1-tap flattop design
+    (``_fast_xambg_general``).
     """
-    if not short_filt:
-        raise NotImplementedError("only the short_filt=True CAF is ported")
     single = ref.dim() == 1
     if single:
         ref, srv = ref[None], srv[None]
@@ -116,13 +178,49 @@ def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
         raise ValueError(f"input length {n} not divisible by freq_bins "
                          f"{freq_bins}")
     d = n // freq_bins
-    if d % 2:
-        raise ValueError("segment CAF path requires an even decimation factor")
     win = resolve_window(window, n)
     if isinstance(win, np.ndarray):
         win = torch.from_numpy(win).to(ref.device)
-    aa, pp, d, n_extra = _caf_segment_tables(ref, srv, win, int(range_bins),
-                                             int(freq_bins))
-    pre = _caf_pre_rows(aa, pp, d, n_extra, int(range_bins), int(freq_bins))
-    out = _doppler_transform(pre)
+    if short_filt:
+        if d % 2:
+            raise ValueError("segment CAF path requires an even decimation "
+                             "factor")
+        aa, pp, d, n_extra = _caf_segment_tables(ref, srv, win,
+                                                 int(range_bins),
+                                                 int(freq_bins))
+        out = _doppler_transform(_caf_pre_rows(aa, pp, d, n_extra,
+                                               int(range_bins),
+                                               int(freq_bins)))
+    else:
+        taps = design_lowpass(10 * d + 1, 1.0 / d, "flattop")
+        out = _fast_xambg_general(ref, srv, win, taps, int(range_bins),
+                                  int(freq_bins))
     return out[0] if single else out
+
+
+def direct_xambg(ref, srv, range_bins: int, freq_bins: int,
+                 sample_rate: float, device=None) -> torch.Tensor:
+    """Direct (time-domain) CAF, the validation oracle of ``fast_xambg``
+    (reference range_doppler_processing.py:93-124): row i is the
+    0..range_bins-lag cross-correlation (``xcorr(·, ·, range_bins, 0)``) of
+    the reference shifted by (i − nf/2)/CPI Hz against the surveillance
+    channel. ref/srv (N,); numpy goes to ``device`` (the CUDA card by
+    default). Returns (freq_bins, range_bins+1) complex64."""
+    ref = on_device(ref, device).to(torch.complex64)
+    srv = on_device(srv, device).to(device=ref.device, dtype=torch.complex64)
+    n = ref.shape[-1]
+    cpi = n / float(sample_rate)
+    t = torch.arange(n, dtype=torch.float32, device=ref.device) / \
+        np.float32(sample_rate)
+    fft_len = nextpow2(n + range_bins + 1)
+    f_srv = torch.fft.fft(srv, n=fft_len).conj()
+    idx = torch.from_numpy(np.mod(np.arange(-range_bins, 1), fft_len)).to(
+        ref.device)
+    rows = []
+    for i in range(freq_bins):
+        df = np.float32((i - 0.5 * freq_bins) / cpi)
+        theta = 2 * np.pi * df * t
+        shifted = ref * torch.complex(torch.cos(theta), torch.sin(theta))
+        full = torch.fft.ifft(torch.fft.fft(shifted, n=fft_len) * f_srv)
+        rows.append(full[idx])
+    return torch.stack(rows)

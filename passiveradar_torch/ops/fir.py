@@ -5,9 +5,11 @@ edge constant are float64 host numpy, re-derived exactly as the JAX package
 derives them (``scipy.signal.resample_poly`` semantics, including the
 ``padtype='line'`` linear-trend extension). The compute is torch:
 
-* ``upfirdn`` / ``resample_poly`` / ``fir_decimate`` — the phase-grouped
-  matmul formulation on strided windows (used by the channel-offset search);
-* ``mix_resample_poly_batch`` — the fused mixer+resampler of the main path.
+* ``upfirdn`` / ``resample_poly`` / ``fir_decimate`` / ``decimate_taps`` —
+  the phase-grouped matmul formulation on strided windows (used by the
+  channel-offset search);
+* ``mix_resample_poly_batch`` — the fused mixer+resampler of the main path
+  (``mix_resample_poly``: one frame).
   Its bulk is the hand-written CUDA kernel ``ops/resample_kernel.py``
   (the Pallas ``mix_regroup_matmul`` of the JAX package) at fold = 1: the
   phase-folded banks of ``_mix_resample_fold`` are a TPU factorisation and
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from scipy import signal as _spsignal
 
+from passiveradar_torch._device import on_device
 from passiveradar_torch.ops.mixer import frequency_shift, phase_rotor
 from passiveradar_torch.ops.resample_kernel import (mix_regroup_matmul,
                                                    pack_bank)
@@ -288,3 +291,26 @@ def fir_decimate(x: torch.Tensor, q: int, numtaps: int | None = None,
         numtaps = 20 * q
     taps = design_lowpass(numtaps + 1, 1.0 / q, window)
     return resample_poly(x, 1, q, window=taps)
+
+
+def decimate_taps(x, taps, q: int, device=None) -> torch.Tensor:
+    """Zero-phase decimation by ``q`` with explicit FIR taps along the last
+    axis, matching scipy.signal.decimate(x, q, ftype=dlti(taps, 1)) (the
+    reference CAF's Doppler decimator, range_doppler_processing.py:69-86):
+    out[g] = Σ_j taps[j]·x[g·q + (len(taps)−1)//2 − j], x zero outside.
+    Numpy input goes to ``device`` (the CUDA card by default)."""
+    return resample_poly(on_device(x, device), 1, int(q),
+                         window=np.asarray(taps, dtype=np.float64))
+
+
+def mix_resample_poly(x, fc: float, fs: float, phase, up: int, down: int,
+                      window=("kaiser", 5.0), padtype: str = "constant",
+                      device=None) -> torch.Tensor:
+    """Fused frequency shift + rational resample of one frame:
+    ``mix_resample_poly_batch`` on a batch of one. x: (n,) complex or (n, 2)
+    float IQ pairs (numpy goes to ``device``, the CUDA card by default);
+    ``phase`` the starting phase in radians."""
+    x = on_device(x, device)
+    ph = torch.as_tensor(phase, dtype=torch.float32).reshape(1)
+    return mix_resample_poly_batch(x[None], ph, fc, fs, up, down, window,
+                                   padtype)[0]

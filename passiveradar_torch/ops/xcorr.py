@@ -11,10 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from passiveradar_torch._device import resolve_device
+from passiveradar_torch._device import on_device, resolve_device
 from passiveradar_torch.config import nextpow2
 from passiveradar_torch.ops.fir import fir_decimate
 from passiveradar_torch.ops.iir import iir_decimate
+from passiveradar_torch.ops.mixer import frequency_shift
+from passiveradar_torch.ops.util import deinterleave_iq, shift
 
 
 def xcorr(s1: torch.Tensor, s2: torch.Tensor, nlead: int,
@@ -90,3 +92,25 @@ def apply_offset(ref, srv, offset: int):
     if offset < 0:
         return ref[:offset], srv[-offset:]
     return ref, srv
+
+
+def offset_compensation(x1, x2, ns: int, ndec: int, nlag: int = 2000,
+                        device=None) -> torch.Tensor:
+    """Find and correct a constant time offset between two channels
+    (reference signal_utils.py:49-71): the offset of the first ``ns``
+    samples by ``find_channel_offset`` (decimation ``ndec``, lags ±nlag),
+    then ``x2`` shifted by it with zero-filled edges. Numpy goes to
+    ``device`` (the CUDA card by default)."""
+    x2 = on_device(x2, device)
+    os_ = find_channel_offset(x1[:int(ns)], x2[:int(ns)], ndec, nlag,
+                              device=x2.device)
+    return shift(x2, os_)
+
+
+def channel_preprocessing(sig, dec: int, fc: float, fs: float,
+                          device=None) -> torch.Tensor:
+    """Deinterleave, tune by ``fc`` and FIR-decimate by ``dec`` (reference
+    signal_utils.py:80-85). Numpy goes to ``device`` (the CUDA card by
+    default)."""
+    iq = deinterleave_iq(sig, device=device)
+    return fir_decimate(frequency_shift(iq, fc, fs), dec)

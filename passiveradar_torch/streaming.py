@@ -78,8 +78,7 @@ class StreamingProcessor:
     the CAF + CFAR maps and the whole track table to the host every CPI;
     "summary" copies only a packed track summary (see _track_summary), with
     the latest maps still available on demand via fetch_maps(). ``device``
-    is where the chain runs (default: the CUDA card). Only the boxcar CAF
-    (``caf_short_filt: true``) is ported.
+    is where the chain runs (default: the CUDA card).
     """
 
     def __init__(self, cfg: RadarConfig, n_tracks: int = 10,
@@ -87,9 +86,6 @@ class StreamingProcessor:
                  device=None):
         if detail not in DETAILS:
             raise ValueError(f"unknown detail mode {detail!r}")
-        if not cfg.caf_short_filt:
-            raise NotImplementedError(
-                "caf_short_filt: false (the flattop CAF) is not ported yet")
         self.dev = resolve_device(device)
         self.cfg = cfg
         self.n_tracks = n_tracks

@@ -528,3 +528,113 @@ def test_wideband_cpi_card_matches_cpu(cuda):
         assert np.unravel_index(np.argmax(g), g.shape) == \
             np.unravel_index(np.argmax(w), w.shape)
         assert np.max(np.abs(got[0, i] - want[0, i])) <= 2e-4 * np.max(w)
+
+
+_IMPLS = ("carry", "coupled", "segment")
+_SOLVERS = ("levinson", "gs_matrix", "gs_dense", "cholesky")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", _IMPLS)
+@pytest.mark.parametrize("solver", _SOLVERS)
+def test_ls_filter_multiple_impls_card_match_cpu(cuda, impl, solver):
+    """Every impl with every solver on the card against the CPU, on white
+    noise with an echo (well conditioned: 1e-4 of the peak |srv|), with an
+    all-zero frame in the batch that stays finite zeros."""
+    rng = np.random.default_rng(5)
+    n, flen, fs = 4096, 16, 4096 / 0.9998442
+    ref = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+           ).astype(np.complex64)
+    srv = (np.roll(ref, 2, axis=-1) + 0.05 * (
+        rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n)))
+    ).astype(np.complex64)
+    ref[1] = srv[1] = 0
+    bins = (0, 1, -1, 2, -2)
+    got = ls_filter_multiple(torch.from_numpy(ref).to(cuda),
+                             torch.from_numpy(srv).to(cuda), flen, fs, bins,
+                             solver=solver, impl=impl).cpu().numpy()
+    want = ls_filter_multiple(torch.from_numpy(ref), torch.from_numpy(srv),
+                              flen, fs, bins, solver=solver,
+                              impl=impl).numpy()
+    assert np.all(np.isfinite(got)) and np.max(np.abs(got[1])) == 0.0
+    assert np.max(np.abs(got - want)) < 1e-4 * np.max(np.abs(srv))
+
+
+@pytest.mark.cuda
+def test_flattop_caf_card_matches_cpu(cuda):
+    """The flattop CAF on the card against the CPU, windowed, batched."""
+    rng = np.random.default_rng(6)
+    ref = (rng.standard_normal((2, 8192)) + 1j * rng.standard_normal(
+        (2, 8192))).astype(np.complex64)
+    srv = (rng.standard_normal((2, 8192)) + 1j * rng.standard_normal(
+        (2, 8192))).astype(np.complex64)
+    from passiveradar_torch.ops.caf import fast_xambg
+    args = (40, 64)
+    kw = dict(window=("kaiser", 5.0), short_filt=False)
+    got = fast_xambg(torch.from_numpy(ref).to(cuda),
+                     torch.from_numpy(srv).to(cuda), *args, **kw).cpu().numpy()
+    want = fast_xambg(torch.from_numpy(ref), torch.from_numpy(srv), *args,
+                      **kw).numpy()
+    assert np.max(np.abs(got - want)) < 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.cuda
+def test_single_bin_cancellers_and_ops_card_match_cpu(cuda):
+    """ls_filter, ls_filter_svd, ls_filter_toeplitz, gal_jpe, direct_xambg,
+    decimate_taps, offset_compensation and channel_preprocessing on numpy
+    input: the card by default, the CPU with device='cpu'."""
+    from passiveradar_torch import ops
+    rng = np.random.default_rng(7)
+    ref = (rng.standard_normal(1024) + 1j * rng.standard_normal(1024)
+           ).astype(np.complex64)
+    srv = (0.8 * np.roll(ref, 3) + 0.1 * (rng.standard_normal(1024) + 1j
+                                          * rng.standard_normal(1024))
+           ).astype(np.complex64)
+    raw = (1000 * rng.standard_normal(4096)).astype(np.int16)
+    calls = {
+        "ls_filter": lambda **kw: ops.ls_filter(ref, srv, 12, **kw),
+        "ls_filter_svd": lambda **kw: ops.ls_filter_svd(ref, srv, 10, **kw),
+        "ls_filter_toeplitz": lambda **kw: ops.ls_filter_toeplitz(
+            ref, srv, 24, **kw),
+        "gal_jpe": lambda **kw: ops.gal_jpe(ref[:200], srv[:200], 4, 8, 1e-3,
+                                            1e-2, **kw),
+        "direct_xambg": lambda **kw: ops.direct_xambg(ref, srv, 10, 16,
+                                                      1024.0, **kw),
+        "decimate_taps": lambda **kw: ops.decimate_taps(ref, np.ones(17), 16,
+                                                        **kw),
+        "offset_compensation": lambda **kw: ops.offset_compensation(
+            ref, np.roll(ref, 5), 1024, 1, 16, **kw),
+        "channel_preprocessing": lambda **kw: ops.channel_preprocessing(
+            raw, 4, 100.0, 4096.0, **kw),
+    }
+    for name, call in calls.items():
+        got = call()
+        assert got.device.type == "cuda", name
+        want = call(device="cpu").numpy()
+        got = got.cpu().numpy()
+        assert np.max(np.abs(got - want)) < 1e-4 * np.max(np.abs(want)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,launches", [("coupled", 3), ("segment", 0)])
+def test_ls_filter_impls_fused_route_launches(cuda, monkeypatch, impl,
+                                              launches):
+    """Under the fused-FFT opt-in, 'coupled' sends its three full-length
+    transforms (the reference spectra, srv's, the final inverse) to the
+    kernel, and 'segment' none (its transforms are 4,096 points); both stay
+    within 2e-4 of the cuFFT route."""
+    n = 65536
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ref = torch.randn((2, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    srv = 0.3 * torch.roll(ref, 7, dims=1) + 0.1 * torch.randn(
+        (2, n), dtype=torch.complex64, generator=gen, device=cuda)
+    bins = (0.0, 1.0, -1.0, 2.0, -2.0)
+    monkeypatch.delenv("PASSIVERADAR_PALLAS_FFT", raising=False)
+    want = ls_filter_multiple(ref, srv, 22, float(n), bins, impl=impl)
+    monkeypatch.setenv("PASSIVERADAR_PALLAS_FFT", "1")
+    before = fk.fft_fused.launches
+    got = ls_filter_multiple(ref, srv, 22, float(n), bins, impl=impl)
+    torch.cuda.synchronize()
+    assert fk.fft_fused.launches == before + launches
+    assert (got - want).abs().max().item() < 2e-4

@@ -142,3 +142,16 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
                       (stream, wide_path)):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--config", str(path)])
+
+
+def test_ops_exports_the_jax_ops_api():
+    """Every name of the JAX package's ``ops.__all__`` is exported by the
+    port's ``ops``, except the Pallas ``nlms_filter_pallas``, whose
+    counterpart is ``nlms_filter_batch``."""
+    import passiveradar_torch.ops as tops
+    import passiveradar_tpu.ops as jops
+    want = set(jops.__all__) - {"nlms_filter_pallas"}
+    missing = sorted(want - set(tops.__all__))
+    assert not missing, missing
+    for name in want | {"nlms_filter_batch"}:
+        assert callable(getattr(tops, name)), name

@@ -184,9 +184,10 @@ def test_streaming_rejects_what_is_not_ported():
     cfg = t_derive(TINY)
     with pytest.raises(ValueError, match="detail"):
         ts.StreamingProcessor(cfg, detail="light", device="cpu")
-    with pytest.raises(NotImplementedError, match="flattop"):
-        ts.StreamingProcessor(dataclasses.replace(cfg, caf_short_filt=False),
-                              device="cpu")
+    # the flattop CAF is ported: a caf_short_filt: false config is taken
+    assert not ts.StreamingProcessor(
+        dataclasses.replace(cfg, caf_short_filt=False),
+        device="cpu").cfg.caf_short_filt
     sp = ts.StreamingProcessor(cfg, device="cpu")
     with pytest.raises(ValueError, match="detail"):
         sp.push(np.zeros(cfg.input_chunk_length, np.float32),
