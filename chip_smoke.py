@@ -73,9 +73,23 @@ Phases, one JSON line each; any failure exits non-zero:
    flattop CAF, card against CPU;
 11. ops_rest: ls_filter, ls_filter_svd, ls_filter_toeplitz, gal_jpe (µs a
    sample), direct_xambg, decimate_taps, offset_compensation and
-   channel_preprocessing at small sizes, card against CPU, ms each.
+   channel_preprocessing at small sizes, card against CPU, ms each;
+12. the sharded, grouped, profiled and multi-process runs: the FM batch
+   through process_frames_shmap on a mesh of [cuda:0], of [cuda:0,
+   cuda:0] and of every card where there are several, for LS and
+   nlms_pallas (maps against process_frames, halo exchanges, launches, ms
+   against one device in turns); ``cli.process --dispatch-groups 2``
+   against G = 1 in turns, and process_frames_groups on two stacked
+   batches; ``cli.process --profile`` (the Chrome trace
+   names the resampler kernel); two ``cli.process --num-processes 2``
+   processes sharing the card over gloo, then ``cli.concat``, against the
+   single-process maps and one process alone; one FM CPI through
+   fast_xambg_tp on 2 and 4 shards of the card; wideband_frames_shmap on
+   2 shards and ``cli.wideband --shard``.
 
-Then the script's seconds, the ``{"kernels": [...]}`` line (each
+``python3 chip_smoke.py --parallel`` runs the build, the main path of
+step 4 and step 12 alone (on several cards: a mesh of every card, a
+process a card). Then the script's seconds, the ``{"kernels": [...]}`` line (each
 kernel's launches on the main path and, in ``launches_by_path``, on every
 path that runs it), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -189,6 +203,15 @@ WIDE_TOL = 2e-4          # one CPI, card vs CPU, over the channel's peak
 ALT_TOL = 2e-3
 CANCELLER_RUNS = 3       # timed runs of the clutter stage per impl × solver
 OPS_TOL = 1e-4           # the remaining ops, card vs CPU, over the peak
+# the sharded, grouped and multi-process paths: maps against the
+# single-device run over its peak (tests/test_pipeline.py's and
+# tests/test_multihost.py's bound), argmax equal
+SHARD_TOL = 1e-3
+SHARD_RUNS = 5           # timed runs each, sharded and on one device
+MP_FRAMES = 15           # frames of the multi-process run: 7 + 8
+MP_TOL = 1e-3
+TP_TOL = 1e-5            # tensor-parallel CAF (tests/test_caf.py)
+WIDE_SHARD_TOL = 1e-4    # sharded wideband path (tests/test_wideband.py)
 
 
 def emit(obj):
@@ -1377,6 +1400,26 @@ def near_echo(status, est, point, cells) -> list:
             and abs(est[i, 1] - point[1]) <= ECHO_GATE_CELLS * cells[1]]
 
 
+def wide_capture(tag="WB"):
+    """The wideband scene's WIDE_CPIS-CPI zarr capture in WORK (written
+    the first time): its params (maps to <tag>), config and the seconds
+    its writing took (0 when it was there)."""
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.synthetic import write_wideband_capture
+
+    params = dict(WIDE, input_file=os.path.join(WORK, "wb_capture.zarr"),
+                  output_fname=os.path.join(WORK, tag),
+                  range_doppler_map_ftype="zarr", num_frames=WIDE_CPIS)
+    cfg = derive_config(params)
+    t0 = time.perf_counter()
+    if not os.path.exists(params["input_file"]):
+        write_wideband_capture(
+            params["input_file"], cfg, WIDE_CPIS, seed=11,
+            delay_samples=WIDE_DELAY * cfg.wideband_channels,
+            doppler_hz=WIDE_DOPPLER_CELLS * cfg.doppler_cell_width)
+    return params, cfg, time.perf_counter() - t0
+
+
 def phase_wideband(torch, dev):
     """bench_wideband.py's DVB-T-class band (8 MS/s in K = 8 channels of
     1 MHz, 0.25 s CPI: 262,144 samples a channel, 2^21 a CPI; 60 km,
@@ -1398,22 +1441,12 @@ def phase_wideband(torch, dev):
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io import zarr_min
     from passiveradar_torch.io.hdf5 import CaptureReader
-    from passiveradar_torch.io.synthetic import write_wideband_capture
     from passiveradar_torch.wideband import (WidebandStreamingProcessor,
                                              channel_path, integrated_path,
                                              wideband_frames)
 
-    params = dict(WIDE, input_file=os.path.join(WORK, "wb_capture.zarr"),
-                  output_fname=os.path.join(WORK, "WB"),
-                  range_doppler_map_ftype="zarr", num_frames=WIDE_CPIS)
-    cfg = derive_config(params)
+    params, cfg, gen_s = wide_capture()
     k = cfg.wideband_channels
-    t0 = time.perf_counter()
-    write_wideband_capture(
-        params["input_file"], cfg, WIDE_CPIS, seed=11,
-        delay_samples=WIDE_DELAY * k,
-        doppler_hz=WIDE_DOPPLER_CELLS * cfg.doppler_cell_width)
-    gen_s = time.perf_counter() - t0
     cfg_path = os.path.join(WORK, "wb.yaml")
     with open(cfg_path, "w") as fh:
         yaml.safe_dump(params, fh)
@@ -2184,6 +2217,530 @@ def phase_ops_rest(torch, dev):
         raise AssertionError(f"ops card vs CPU: {bad}")
 
 
+def phase_sharded(torch, dev, params):
+    """The FM batch (8 + 2 frames, zero-padded to a multiple of the shard
+    count) through process_frames_shmap on a mesh of [cuda:0], of [cuda:0,
+    cuda:0] and, with more than one card, of every card, for the LS
+    canceller and for nlms_pallas: the maps against process_frames on
+    cuda:0, the halo exchanges and the kernels' launches of one call
+    (counts set to 0 just before it), and ms a batch against one device,
+    median of SHARD_RUNS, the two run in turns. Returns the launches of the
+    two-shard call of each method."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.parallel.halo import local_overlap
+    from passiveradar_torch.parallel.mesh import make_mesh
+
+    meshes = [("1x cuda:0", make_mesh(devices=[dev])),
+              ("2x cuda:0", make_mesh(devices=[dev, dev]))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    f = BATCH + 2
+    launches = {}
+    for method in ("ls_multiple", "nlms_pallas"):
+        cfg = derive_config(dict(params, clutter_method=method))
+        reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+        ref_np, srv_np = reader.read_pair_frames(0, f)
+        reader.close()
+        ph_np = pl.frame_phases(cfg, list(range(f))).astype(np.float32)
+        for label, mesh in meshes:
+            n = len(mesh)
+            fp = -(-f // n) * n                # frames padded with zeros
+            ref = torch.zeros((fp,) + ref_np.shape[1:],
+                              dtype=torch.from_numpy(ref_np).dtype)
+            srv = torch.zeros_like(ref)
+            ph = torch.zeros(fp, dtype=torch.float32)
+            ref[:f], srv[:f] = torch.from_numpy(ref_np), \
+                torch.from_numpy(srv_np)
+            ph[:f] = torch.from_numpy(ph_np)
+            ref, srv, ph = ref.to(dev), srv.to(dev), ph.to(dev)
+            want = pl._process_frames_impl(ref, srv, ph, cfg)
+            zero_counts()
+            ex = local_overlap.exchanges
+            blocks = pl.process_frames_shmap(ref, srv, ph, cfg, mesh)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            exchanges = local_overlap.exchanges - ex
+            got = torch.cat([b.to(dev) for b in blocks])
+            rel, same = compare_to(got[:f].cpu().numpy(),
+                                   want[:f].cpu().numpy())
+            del got, want, blocks
+            times = dict(one_device=[], sharded=[])
+            for which in ("one_device", "sharded", "sharded", "one_device") \
+                    * ((SHARD_RUNS + 1) // 2):
+                fn = (lambda: pl._process_frames_impl(ref, srv, ph, cfg)) \
+                    if which == "one_device" else \
+                    (lambda: pl.process_frames_shmap(ref, srv, ph, cfg, mesh))
+                if len(times[which]) < SHARD_RUNS:
+                    times[which].append(synced_ms(torch, fn)[1])
+            ms = {k: float(np.median(v)) for k, v in times.items()}
+            emit(dict(phase="sharded", clutter_method=method, mesh=label,
+                      shards=n, buffer_frames=fp, valid_frames=f,
+                      rel_err_vs_process_frames=rel, argmax_equal=same,
+                      halo_exchanges=exchanges, launches=counts,
+                      ms_median=ms, ms_runs=times,
+                      sharded_over_one_device=ms["sharded"]
+                      / ms["one_device"]))
+            want_b2 = n if method == "nlms_pallas" else 0
+            if rel > SHARD_TOL or not same or exchanges != 4 or counts != dict(
+                    mix_regroup_matmul=2 * n, nlms_filter_pallas=want_b2,
+                    fft_fused=0):
+                raise AssertionError(
+                    f"sharded {method} on {label}: rel {rel}, argmax "
+                    f"equal {same}, exchanges {exchanges}, launches "
+                    f"{counts}")
+            if n == 2:
+                launches[method] = counts
+            del ref, srv, ph
+    return launches
+
+
+def phase_dispatch_groups(torch, dev, params, want_stack):
+    """cli.process --dispatch-groups 2 on the FM capture against the G = 1
+    run, in turns (G = 1, 2, 2, 1): the port takes the flag and runs one
+    batch a call whatever G is, so each run's maps equal the main path's
+    (the largest difference, expected 0; a failure above SHARD_TOL of the
+    peak or an argmax that moves), with wall frames/s and every kernel's
+    launches of each run (set to 0 just before it, 2 a batch). Then
+    pipeline.process_frames_groups on two stacked FM batches against one
+    process_frames call each (difference 0) and its launches. Returns the
+    launches of the first G = 2 run."""
+    import yaml
+
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.cli.process import main as process_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io import zarr_min
+    from passiveradar_torch.io.hdf5 import CaptureReader
+
+    runs, launches = [], None
+    batches = -(-FRAMES // BATCH)
+    for g in (1, 2, 2, 1):
+        p = dict(params, output_fname=os.path.join(WORK, f"XAMBG_G{g}"))
+        cfg = derive_config(p)
+        cfg_path = os.path.join(WORK, f"groups{g}.yaml")
+        with open(cfg_path, "w") as fh:
+            yaml.safe_dump(p, fh)
+        zero_counts()
+        t0 = time.perf_counter()
+        n = process_main(["--config", cfg_path, "--dispatch-groups", str(g)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname,
+                                         mode="r"))
+        diff = float(np.max(np.abs(stack - want_stack)))
+        rel, same = compare_to(np.moveaxis(stack, 2, 0),
+                               np.moveaxis(want_stack, 2, 0))
+        runs.append(dict(groups=g, frames=n, wall_s=wall,
+                         wall_frames_per_s=n / wall, launches=counts,
+                         max_abs_diff_vs_main_path=diff, argmax_equal=same))
+        if g == 2 and launches is None:
+            launches = counts
+        if n != FRAMES or rel > SHARD_TOL or not same or counts != dict(
+                mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
+                fft_fused=0):
+            emit(dict(phase="dispatch_groups", runs=runs))
+            raise AssertionError(f"--dispatch-groups {g}: {n} frames, max "
+                                 f"difference {diff}, launches {counts}")
+    # the library's grouped call: frames [0, f) and [FRAMES - f, FRAMES)
+    cfg = derive_config(params)
+    f = BATCH + 2
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    pairs = [reader.read_pair_frames(s0, f) for s0 in (0, FRAMES - f)]
+    reader.close()
+    refs = torch.from_numpy(np.stack([r for r, _ in pairs])).to(dev)
+    srvs = torch.from_numpy(np.stack([s for _, s in pairs])).to(dev)
+    phs = torch.from_numpy(np.stack(
+        [pl.frame_phases(cfg, list(range(s0, s0 + f)))
+         for s0 in (0, FRAMES - f)]).astype(np.float32)).to(dev)
+    zero_counts()
+    got = pl.process_frames_groups(refs, srvs, phs, cfg, device=dev)
+    torch.cuda.synchronize()
+    group_counts = read_counts()
+    group_diff = max(float(torch.max(torch.abs(
+        got[g] - pl._process_frames_impl(refs[g], srvs[g], phs[g], cfg))))
+        for g in range(2))
+    del got, refs, srvs, phs
+    emit(dict(phase="dispatch_groups", frames=FRAMES, batch_frames=BATCH,
+              runs=runs,
+              wall_frames_per_s_median={
+                  g: float(np.median([r["wall_frames_per_s"] for r in runs
+                                      if r["groups"] == g])) for g in (1, 2)},
+              process_frames_groups=dict(
+                  groups=2, frames=f, max_abs_diff_vs_process_frames=group_diff,
+                  launches=group_counts)))
+    if group_diff != 0 or group_counts != dict(
+            mix_regroup_matmul=4, nlms_filter_pallas=0, fft_fused=0):
+        raise AssertionError(f"process_frames_groups: difference "
+                             f"{group_diff}, launches {group_counts}")
+    return launches
+
+
+def phase_profile(torch, params):
+    """cli.process --profile DIR on the FM capture: the Chrome trace it
+    writes, its size, and whether it names the resampler kernel (it must);
+    every kernel's launches of the run (set to 0 just before it)."""
+    import yaml
+
+    from passiveradar_torch.cli.process import main as process_main
+
+    p = dict(params, output_fname=os.path.join(WORK, "XAMBG_PROF"))
+    cfg_path = os.path.join(WORK, "prof.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(p, fh)
+    trace_dir = os.path.join(WORK, "trace")
+    zero_counts()
+    t0 = time.perf_counter()
+    n = process_main(["--config", cfg_path, "--profile", trace_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    traces = sorted(f for f in os.listdir(trace_dir)
+                    if f.endswith(".pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kernels if "mix_regroup_kernel" in e.get("name", "")]
+    emit(dict(phase="profile_cli", frames=n, wall_s=wall,
+              trace=traces[0],
+              trace_bytes=os.path.getsize(os.path.join(trace_dir,
+                                                       traces[0])),
+              trace_events=len(events), trace_kernels=len(kernels),
+              trace_mix_regroup_kernels=len(b1),
+              names_mix_regroup_kernel=bool(b1), launches=counts))
+    if n != FRAMES or not b1:
+        raise AssertionError(f"--profile: {n} frames, the trace names "
+                             f"mix_regroup_kernel {len(b1)} times")
+    return counts
+
+
+# one cli.process run in a child process: its kernels' launch counts on
+# the last line of its output
+CHILD = """
+import json, sys
+from passiveradar_torch.cli.process import main
+from passiveradar_torch.ops import fft_kernel, nlms_kernel, resample_kernel
+main(sys.argv[1:])
+print(json.dumps(dict(
+    mix_regroup_matmul=resample_kernel.mix_regroup_matmul.launches,
+    nlms_filter_pallas=nlms_kernel.nlms_filter_batch.launches,
+    fft_fused=fft_kernel.fft_fused.launches)))
+"""
+
+
+# STEADY_RUNS device-resident FM batches of process_frames timed in a child
+# process of a gloo group (argv: config, rank, count, coordinator), on card
+# rank % cards, between two barriers so that the children's timed runs
+# overlap: milliseconds of each run on the last line of its output
+STEADY_CHILD = """
+import json, sys, time, torch
+from passiveradar_torch import pipeline as pl
+from passiveradar_torch.config import load_config
+from passiveradar_torch.io.hdf5 import CaptureReader
+from passiveradar_torch.parallel import distributed as dd
+cfg, rank, count = load_config(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+dd.init_distributed(sys.argv[4], count, rank)
+dev = dd.process_device()
+reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+f = cfg.frame_batch + 2
+ref, srv = (torch.from_numpy(a).to(dev) for a in reader.read_pair_frames(0, f))
+ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+for _ in range(2):
+    pl._process_frames_impl(ref, srv, ph, cfg)
+torch.cuda.synchronize(dev)
+if count > 1:
+    torch.distributed.barrier()
+ms = []
+for _ in range(%d):
+    t0 = time.perf_counter()
+    pl._process_frames_impl(ref, srv, ph, cfg)
+    torch.cuda.synchronize(dev)
+    ms.append((time.perf_counter() - t0) * 1e3)
+if count > 1:
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+print(json.dumps(dict(card=str(dev), ms=ms)))
+"""
+
+
+def run_children(argvs, timeout, code=CHILD):
+    """One child process running ``code`` per argv, all started together;
+    (wall seconds until the last ends, outputs, the JSON object each
+    printed last). Every child is ended before this returns."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code] + argv, cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"child {p.args[3:]} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return wall, outs, [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiprocess(torch, params, want_stack):
+    """P = max(2, cards) cli.process processes (--num-processes P; on one
+    card they share it, else each takes its own) over a gloo group on a
+    free local port, MP_FRAMES frames (MP_FRAMES // P each, the remainder
+    on the last), then cli.concat; then one process alone on the same
+    frames. The part sizes, the merged stack against the first MP_FRAMES
+    frames of the main path's, the ground-truth peaks, the wall seconds of
+    the group against one process, and the kernels' launches summed over
+    the group; then the steady state: STEADY_RUNS device-resident LS
+    batches timed in each of P processes at once (STEADY_CHILD) against
+    one process alone, as aggregate frames/s. Returns the CLI group's
+    launches."""
+    import yaml
+
+    from passiveradar_torch.cli.concat import main as concat_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io import zarr_min
+
+    p = dict(params, num_frames=MP_FRAMES,
+             output_fname=os.path.join(WORK, "XAMBG_MP"))
+    cfg = derive_config(p)
+    cfg_path = os.path.join(WORK, "mp.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(p, fh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    procs = max(2, torch.cuda.device_count())
+    coordinator = f"127.0.0.1:{free_port()}"
+    group_wall, outs, counts = run_children(
+        [["--config", cfg_path, "--num-processes", str(procs),
+          "--process-id", str(i), "--coordinator", coordinator]
+         for i in range(procs)], 600)
+    parts = [zarr_min.open(f"{cfg.output_fname}.part{i}.zarr",
+                           mode="r").shape[2] for i in range(procs)]
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    merged_n = concat_main(["--config", cfg_path])
+    merged = np.asarray(zarr_min.open(cfg.range_doppler_map_fname, mode="r"))
+    rel, same = compare_to(np.moveaxis(merged, 2, 0),
+                           np.moveaxis(want_stack[:, :, :MP_FRAMES], 2, 0))
+    strong, weak, _ = ground_truth_peaks(merged)
+    one = dict(p, output_fname=os.path.join(WORK, "XAMBG_MP1"))
+    one_path = os.path.join(WORK, "mp1.yaml")
+    with open(one_path, "w") as fh:
+        yaml.safe_dump(one, fh)
+    one_wall, _, one_counts = run_children([["--config", one_path]], 600)
+    # the steady state: an LS batch timed in each of the P processes at
+    # once, against one process alone (aggregate frames/s)
+    steady = {}
+    for n_procs in (1, procs):
+        port = f"127.0.0.1:{free_port()}"
+        _, _, rows = run_children(
+            [[cfg_path, str(i), str(n_procs), port] for i in range(n_procs)],
+            600, STEADY_CHILD % STEADY_RUNS)
+        med = [float(np.median(r["ms"])) for r in rows]
+        steady[n_procs] = dict(
+            cards=[r["card"] for r in rows], ms_median=med,
+            frames_per_s=float(sum(BATCH / m * 1e3 for m in med)))
+    emit(dict(phase="multiprocess", processes=procs,
+              cards=torch.cuda.device_count(), frames=MP_FRAMES,
+              part_frames=parts, merged_frames=merged_n,
+              rel_err_vs_single_process=rel, argmax_equal=same,
+              strong_peak=strong, weak_peak=weak,
+              group_wall_s=group_wall, one_process_wall_s=one_wall,
+              group_over_one=group_wall / one_wall, launches=launches,
+              one_process_launches=one_counts[0],
+              steady_ls_batch={f"{k} process(es)": v
+                               for k, v in steady.items()},
+              steady_speedup=steady[procs]["frames_per_s"]
+              / steady[1]["frames_per_s"],
+              process_lines=[ln for o in outs for ln in o.splitlines()
+                             if ln.startswith("[process")]))
+    per = MP_FRAMES // procs
+    if parts != [per] * (procs - 1) + [MP_FRAMES - per * (procs - 1)] or \
+            merged_n != MP_FRAMES or rel > MP_TOL or not same or \
+            (strong, weak) != (STRONG_CELL, WEAK_CELL):
+        raise AssertionError(f"multiprocess: parts {parts}, merged "
+                             f"{merged_n}, rel {rel}, argmax equal {same}, "
+                             f"peaks {strong}, {weak}")
+    batches = sum(-(-n // BATCH) for n in parts)
+    if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
+                        fft_fused=0):
+        raise AssertionError(f"multiprocess launches {launches}")
+    return launches
+
+
+def phase_tp_caf(torch, dev):
+    """One FM CPI (524,288 samples, 1024 Doppler × 176 range cells, Kaiser
+    window; an echo 40 samples late at +20 Hz) through fast_xambg_tp on 2
+    and 4 shards of cuda:0 against fast_xambg (TP_TOL of the peak, the
+    target's cell), ms each, in turns. No kernel runs on this path."""
+    from passiveradar_torch.ops.caf import fast_xambg, fast_xambg_tp, \
+        resolve_window
+    from passiveradar_torch.parallel.mesh import make_mesh
+
+    n, nf, r = 524288, 1024, 175
+    fs = float(n) / 2.0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ref = torch.randn(n, dtype=torch.complex64, generator=gen, device=dev)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / fs
+    rot = torch.exp(2j * math.pi * 20.0 * t).to(torch.complex64)
+    srv = 0.05 * torch.roll(ref, 40) * rot + 0.01 * torch.randn(
+        n, dtype=torch.complex64, generator=gen, device=dev)
+    # the window on the card once, as the pipeline keeps it
+    # (pipeline._window_tensor): a window given by name is computed on the
+    # host at every call
+    win = torch.from_numpy(resolve_window(("kaiser", 5.0), n)).to(dev)
+    want = fast_xambg(ref, srv, r, nf, window=win)
+    zero_counts()
+    rows = []
+    for shards in (2, 4):
+        mesh = make_mesh(devices=[dev] * shards, axis_name="tp")
+        got = torch.cat(fast_xambg_tp(ref, srv, r, nf, mesh, window=win),
+                        dim=1)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        fbin, rbin = np.unravel_index(int(got.abs().argmax()), (nf, r + 1))
+        ms = dict(tp=[], single=[])
+        for which in ("single", "tp", "tp", "single"):
+            fn = (lambda: fast_xambg(ref, srv, r, nf, window=win)) \
+                if which == "single" else \
+                (lambda: fast_xambg_tp(ref, srv, r, nf, mesh, window=win))
+            ms[which].append(cuda_ms(torch, fn, 3, warmup=1))
+        rows.append(dict(shards=shards, rel_err=rel,
+                         cell=[int(fbin), int(rbin)], ms=ms))
+        if rel > TP_TOL or rbin != r - 40 or abs(fbin - (nf // 2 - 40)) > 1:
+            emit(dict(phase="tp_caf", rows=rows))
+            raise AssertionError(f"fast_xambg_tp on {shards} shards: rel "
+                                 f"{rel}, cell ({fbin}, {rbin})")
+    counts = read_counts()
+    emit(dict(phase="tp_caf", samples=n, doppler_cells=nf,
+              range_cells=r + 1, tol=TP_TOL, rows=rows, launches=counts))
+    return counts
+
+
+def phase_wideband_shard(torch, dev):
+    """wideband_frames_shmap on 2 shards of cuda:0 on phase_wideband's
+    batch of WIDE_BATCH CPIs against wideband_frames (WIDE_SHARD_TOL of the
+    peak, argmax equal in every channel of every CPI), ms each in turns;
+    then cli.wideband --shard on its WIDE_CPIS-CPI capture, the echo the
+    argmax of every CPI of every channel; the kernels' launches of both
+    (set to 0 just before the first)."""
+    import yaml
+
+    from passiveradar_torch.cli.wideband import main as wideband_main
+    from passiveradar_torch.io import zarr_min
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.parallel.mesh import make_mesh
+    from passiveradar_torch.wideband import channel_path, wideband_frames, \
+        wideband_frames_shmap
+
+    params, cfg, _ = wide_capture("WB_SHARD")
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    ref_np, srv_np = reader.read_iq_frames(0, WIDE_BATCH)
+    reader.close()
+    ref = torch.from_numpy(ref_np).to(dev)
+    srv = torch.from_numpy(srv_np).to(dev)
+    mesh = make_mesh(devices=[dev, dev], axis_name="channels")
+    zero_counts()
+    want = wideband_frames(ref, srv, cfg)
+    got = torch.cat(wideband_frames_shmap(ref, srv, cfg, mesh), dim=1)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    g = got.abs().flatten(2).argmax(-1)
+    w = want.abs().flatten(2).argmax(-1)
+    bad = int((g != w).sum())
+    del got, want
+    ms = dict(one_device=[], sharded=[])
+    for which in ("one_device", "sharded", "sharded", "one_device"):
+        fn = (lambda: wideband_frames(ref, srv, cfg)) \
+            if which == "one_device" else \
+            (lambda: wideband_frames_shmap(ref, srv, cfg, mesh))
+        ms[which].append(cuda_ms(torch, fn, 2, warmup=1))
+    cfg_path = os.path.join(WORK, "wb_shard.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(params, fh)
+    t0 = time.perf_counter()
+    n = wideband_main(["--config", cfg_path, "--shard",
+                       "--batch-frames", str(WIDE_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    nf, r = cfg.num_doppler_cells, cfg.num_range_cells
+    cell = (nf // 2 - WIDE_DOPPLER_CELLS, r - WIDE_DELAY)
+    misses = {}
+    for ch in cfg.wideband_channel_select:
+        stack = np.abs(np.asarray(zarr_min.open(channel_path(cfg, ch),
+                                                mode="r")))
+        bad_cpis = [fr for fr in range(stack.shape[2])
+                    if np.unravel_index(np.argmax(stack[:, :, fr]),
+                                        (nf, r + 1)) != cell]
+        if bad_cpis:
+            misses[ch] = bad_cpis
+    emit(dict(phase="wideband_shard", shards=2, cpis=WIDE_BATCH,
+              channels=cfg.wideband_channels, rel_err=rel, tol=WIDE_SHARD_TOL,
+              argmax_diff=bad, ms=ms, cli_cpis=n,
+              cli_devices=torch.cuda.device_count(),
+              cli_wall_s=wall, cli_cpi_per_s=n / wall, echo_cell=list(cell),
+              argmax_misses=misses, launches=counts))
+    if rel > WIDE_SHARD_TOL or bad or n != WIDE_CPIS or misses:
+        raise AssertionError(f"wideband_shard: rel {rel}, argmax {bad}, "
+                             f"{n} CPIs, misses {misses}")
+    return counts
+
+
+def parallel_phases(torch, dev, params, cfg) -> dict:
+    """The sharded, grouped, profiled and multi-process phases (step 12),
+    after the main path; each path's launch counts by name."""
+    from passiveradar_torch.io import zarr_min
+    main_stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname,
+                                          mode="r"))
+    sharded = phase_sharded(torch, dev, params)
+    return dict(sharded_ls=sharded["ls_multiple"],
+                sharded_nlms_pallas=sharded["nlms_pallas"],
+                dispatch_groups=phase_dispatch_groups(torch, dev, params,
+                                                      main_stack),
+                profile_cli=phase_profile(torch, params),
+                multiprocess=phase_multiprocess(torch, params, main_stack),
+                tp_caf=phase_tp_caf(torch, dev),
+                wideband_shard=phase_wideband_shard(torch, dev))
+
+
+def main_parallel(torch, dev, card, cuda_build) -> int:
+    """``--parallel``: the build, the main path and step 12 alone, for a
+    run on several cards (the sharded phase then adds a mesh of every
+    card, the multi-process phase runs a process a card)."""
+    t_start = time.perf_counter()
+    for name, b in cuda_build.build(force=True).items():
+        emit(dict(phase="build", library=name, seconds=b["seconds"]))
+    try:
+        params, cfg, _ = phase_main_path(torch)
+        parallel = parallel_phases(torch, dev, params, cfg)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    emit(dict(phase="script", seconds=time.perf_counter() - t_start,
+              launches_by_path=parallel))
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2205,6 +2762,13 @@ def main() -> int:
               cuda=torch.version.cuda, python=sys.version.split()[0],
               device=torch.cuda.get_device_name(0),
               device_count=torch.cuda.device_count(), nvidia_smi=card))
+
+    if sys.argv[1:] == ["--parallel"]:
+        return main_parallel(torch, dev, card, cuda_build)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
 
     other_block = {"NLMS_BLOCK": NLMS_OTHER_BLOCK}
     built = cuda_build.build(force=True, variants=(
@@ -2245,13 +2809,14 @@ def main() -> int:
         process_alt = phase_main_path_alt(torch, dev, params)
         stream_alt = phase_stream_alt(torch, dev, params)
         phase_ops_rest(torch, dev)
+        parallel = parallel_phases(torch, dev, params, cfg)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     row["launches"] = launches
     # every path's own count (set to 0 just before it): the maps that the
     # postprocess phase reads come from the LS cli.process run
     later = dict(postprocess=post, **wide, process_alt=process_alt,
-                 stream_alt=stream_alt)
+                 stream_alt=stream_alt, **parallel)
     row["launches_by_path"] = dict(process_ls=launches,
                                    stream_ls_fused=stream["ls_multiple"]
                                    ["mix_regroup_matmul"],

@@ -30,6 +30,15 @@ def add_device(p: argparse.ArgumentParser) -> None:
                         "fallback to the CPU)")
 
 
+def shard_mesh(device, axis_name: str = "frames"):
+    """The mesh of ``--shard``: every local CUDA card, or the one device
+    ``--device`` names when it is not the card (the CPU)."""
+    from passiveradar_torch.parallel.mesh import make_mesh
+    if device.type == "cuda":
+        return make_mesh(axis_name=axis_name)
+    return make_mesh(devices=[device], axis_name=axis_name)
+
+
 def load(args) -> RadarConfig:
     try:
         return load_config(args.config)
@@ -51,9 +60,10 @@ def fail_on_missing_capture(fn):
     return wrapped
 
 
-def banner(cfg: RadarConfig, device) -> None:
+def banner(cfg: RadarConfig, device=None) -> None:
+    where = "PyTorch" if device is None else f"PyTorch, {device}"
     print("-" * 67)
-    print(f"   PASSIVE RADAR (PyTorch, {device}) ")
+    print(f"   PASSIVE RADAR ({where}) ")
     print("-" * 67)
     print(f"Input file: {cfg.input_file}")
     print(f"Channel {cfg.channel_freq / 1e6:.1f} MHz, "

@@ -106,6 +106,27 @@ class CaptureReader:
         else:
             usable = min(len(self._ref), len(self._srv)) // 2 - abs(off)
         self.num_frames = usable // self.frame_len_c
+        self._first_frame = 0
+
+    def shard(self, process_index: int, process_count: int) -> "CaptureReader":
+        """Restrict to this process's contiguous frame range (multi-process
+        ingest). The last process takes the remainder frames.
+
+        Interior shard edges allow one frame of margin reads into the
+        neighbouring range (frame_margin_before/after), so CPI-overlap halos
+        stay exact at process boundaries; frame_offset is the global index
+        of local frame 0 (the mixing phases depend on the global frame
+        number). Every read adds it."""
+        per = self.num_frames // process_count
+        self._first_frame = process_index * per
+        if process_index == process_count - 1:
+            self.num_frames -= per * (process_count - 1)
+        else:
+            self.num_frames = per
+        self.frame_offset = self._first_frame
+        self.frame_margin_before = process_index > 0
+        self.frame_margin_after = process_index < process_count - 1
+        return self
 
     def read_raw_frames(self, start: int, count: int):
         """(count, input_chunk_length) float32 interleaved IQ per channel."""
@@ -113,7 +134,7 @@ class CaptureReader:
             ref, srv = self.read_iq_frames(start, count)
             return (ref.view(np.float32).reshape(count, self.frame_len),
                     srv.view(np.float32).reshape(count, self.frame_len))
-        s_c = start * self.frame_len_c
+        s_c = (self._first_frame + start) * self.frame_len_c
         e_c = s_c + count * self.frame_len_c
         ref = self._to_f32(np.asarray(
             self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)]))
@@ -135,7 +156,7 @@ class CaptureReader:
             ref, srv = self.read_raw_frames(start, count)
             return (ref.reshape(count, self.frame_len_c, 2),
                     srv.reshape(count, self.frame_len_c, 2))
-        s_c = start * self.frame_len_c
+        s_c = (self._first_frame + start) * self.frame_len_c
         e_c = s_c + count * self.frame_len_c
         ref = np.asarray(
             self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)])
@@ -149,7 +170,7 @@ class CaptureReader:
         if not self.interleaved:
             ref, srv = self.read_raw_frames(start, count)
             return ref.view(np.complex64), srv.view(np.complex64)
-        s_c = start * self.frame_len_c
+        s_c = (self._first_frame + start) * self.frame_len_c
         e_c = s_c + count * self.frame_len_c
         lo = s_c + min(self._ref_off, self._srv_off)
         hi = e_c + max(self._ref_off, self._srv_off)

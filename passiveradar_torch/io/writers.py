@@ -32,6 +32,10 @@ def zarr_backend():
     return zarr_min
 
 
+# frames copied a step when merging part stacks (concat_parts)
+CONCAT_SLAB_FRAMES = 64
+
+
 def write_metadata(cfg: RadarConfig, num_frames: int, path: str | None = None):
     path = path or cfg.meta_fname
     nf = cfg.num_doppler_cells
@@ -100,6 +104,56 @@ class MapWriter:
     def close(self):
         if self._h5 is not None:
             self._h5.close()
+
+
+def concat_parts(part_paths, out_path: str, ftype: str = "hdf5") -> int:
+    """Concatenate per-process ``.partN`` map stacks into one frame stack.
+
+    Each part holds a contiguous frame range in process order (the
+    multi-process output contract, parallel/distributed.py). Frames are
+    copied in CONCAT_SLAB_FRAMES-frame slabs, so host memory stays O(slab)
+    however large a part is. Sets ``frames_done`` to the total and returns
+    it. Zarr stores go through zarr_backend(); h5py is imported for HDF5
+    only.
+    """
+    def copy_slabs(dst, src, at: int) -> int:
+        n = src.shape[2]
+        for s in range(0, n, CONCAT_SLAB_FRAMES):
+            e = min(s + CONCAT_SLAB_FRAMES, n)
+            dst[:, :, at + s:at + e] = src[:, :, s:e]
+        return n
+
+    if ftype == "zarr":
+        zarr = zarr_backend()
+        srcs = [zarr.open(p, mode="r") for p in part_paths]
+        total = sum(s.shape[2] for s in srcs)
+        dst = zarr.open(out_path, mode="w",
+                        shape=srcs[0].shape[:2] + (total,),
+                        chunks=srcs[0].chunks, dtype=srcs[0].dtype)
+        at = 0
+        for s in srcs:
+            at += copy_slabs(dst, s, at)
+        dst.attrs["frames_done"] = total
+        return total
+    import h5py
+    with h5py.File(out_path, "w") as out:
+        dst = None
+        at = 0
+        for p in part_paths:
+            with h5py.File(p, "r") as f:
+                src = f["/xambg"]
+                n = src.shape[2]
+                if dst is None:
+                    dst = out.create_dataset(
+                        "/xambg", shape=src.shape[:2] + (n,),
+                        maxshape=src.shape[:2] + (None,),
+                        dtype=src.dtype, chunks=src.chunks)
+                else:
+                    dst.resize(at + n, axis=2)
+                at += copy_slabs(dst, src, at)
+        if dst is not None:
+            dst.attrs["frames_done"] = at
+    return at
 
 
 def _open_maps(cfg: RadarConfig, path: str | None):

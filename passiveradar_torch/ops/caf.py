@@ -198,6 +198,47 @@ def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
     return out[0] if single else out
 
 
+def fast_xambg_tp(ref, srv, range_bins: int, freq_bins: int, mesh,
+                  window=None) -> list:
+    """Tensor-parallel CAF: one frame spread over the shards of ``mesh``
+    (parallel/mesh.FrameMesh), for frames too large or too latency-bound
+    for one device.
+
+    The segment-correlation stage is row-independent, so shard i computes
+    segment rows [i·nf/n, (i+1)·nf/n) on its device; copies then gather
+    each shard's block of (R+1)/n lags from every row block onto that
+    shard (the JAX package's tiled all_to_all: each shard receives 1/n of
+    the pre-FFT matrix, not all of it), and each shard runs the Doppler FFT
+    over its lags. ref/srv: (N,) complex64, numpy or tensors. Returns the
+    per-shard (freq_bins, (range_bins+1)/n) lag blocks in lag order, each
+    on its shard's device; their concatenation along the lag axis equals
+    fast_xambg's (boxcar decimator, short_filt=True).
+    """
+    n = len(mesh)
+    if freq_bins % n or (range_bins + 1) % n:
+        raise ValueError(f"freq_bins {freq_bins} and range_bins+1 "
+                         f"{range_bins + 1} must divide the {n}-shard mesh")
+    rows_per = freq_bins // n
+    lags_per = (range_bins + 1) // n
+    win = resolve_window(window, ref.shape[-1])
+    pres = []
+    for i, dev in enumerate(mesh.devices):
+        r = on_device(ref, dev).to(torch.complex64)[None]
+        s = on_device(srv, dev).to(torch.complex64)[None]
+        aa, pp, d, n_extra = _caf_segment_tables(
+            r, s, None if win is None else on_device(win, dev),
+            int(range_bins), int(freq_bins))
+        pres.append(_caf_pre_rows(aa, pp, d, n_extra, int(range_bins),
+                                  rows_per, i * rows_per)[0])
+    out = []
+    for j, dev in enumerate(mesh.devices):
+        lags = slice(j * lags_per, (j + 1) * lags_per)
+        mine = torch.cat([p[:, lags].to(dev, non_blocking=True)
+                          for p in pres], dim=0)     # (freq_bins, lags_per)
+        out.append(_doppler_transform(mine))
+    return out
+
+
 def direct_xambg(ref, srv, range_bins: int, freq_bins: int,
                  sample_rate: float, device=None) -> torch.Tensor:
     """Direct (time-domain) CAF, the validation oracle of ``fast_xambg``

@@ -1,6 +1,6 @@
 """The end-to-end processing pipeline on torch tensors.
 
-Port of the JAX package's pipeline.py for one device. Per batch of frames:
+Port of the JAX package's pipeline.py. Per batch of frames:
 
     raw per-frame chunks (int16 / float32 IQ pairs)
       → fused down-conversion + polyphase resample   (main.py:122-166;
@@ -16,6 +16,9 @@ Port of the JAX package's pipeline.py for one device. Per batch of frames:
 halo margin on each side, pinned host buffers, non-blocking copies both
 ways, and one batch of device work in flight while the host writes the
 previous batch's maps and the prefetch thread reads the next one from disk.
+A batch runs on one device (``process_frames``) or split over the devices
+of a frame mesh (``process_frames_shmap``: the halo is then an exchange
+between shards). ``process_frames_groups`` runs G stacked batches a call.
 """
 
 from __future__ import annotations
@@ -35,13 +38,17 @@ from passiveradar_torch.ops.fir import mix_resample_poly_batch
 from passiveradar_torch.ops.mixer import block_phase_offsets
 from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
 from passiveradar_torch.ops.util import deinterleave_batch
-from passiveradar_torch.parallel.halo import overlap_frames
+from passiveradar_torch.parallel.halo import local_overlap, overlap_frames, \
+    split_frames
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(
+        np.ascontiguousarray(x))
 
 
 def _to_device(x, dev: torch.device) -> torch.Tensor:
-    if not torch.is_tensor(x):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(dev, non_blocking=True)
+    return _as_tensor(x).to(dev, non_blocking=True)
 
 
 def _preprocess_impl(raw: torch.Tensor, phases: torch.Tensor,
@@ -101,6 +108,17 @@ def _window_tensor(spec, n: int, device: torch.device):
     return None if win is None else torch.from_numpy(win).to(device)
 
 
+def _caf_windowed(ref_ov: torch.Tensor, srv_ov: torch.Tensor,
+                  cfg: RadarConfig) -> torch.Tensor:
+    """Windowed CAF of already halo-extended frames →
+    (F, num_doppler_cells, num_range_cells+1) complex64 maps."""
+    win = _window_tensor(cfg.caf_window, cfg.caf_input_samples,
+                         ref_ov.device)
+    return fast_xambg(ref_ov, srv_ov, cfg.num_range_cells,
+                      cfg.num_doppler_cells, window=win,
+                      short_filt=cfg.caf_short_filt)
+
+
 def _caf_batch_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
                     cfg: RadarConfig) -> torch.Tensor:
     """Halo overlap + windowed CAF: (F, output_chunk_length) pairs →
@@ -108,10 +126,7 @@ def _caf_batch_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
     if cfg.window_overlap:
         ref = overlap_frames(ref, cfg.window_overlap)
         srv_clean = overlap_frames(srv_clean, cfg.window_overlap)
-    win = _window_tensor(cfg.caf_window, cfg.caf_input_samples, ref.device)
-    return fast_xambg(ref, srv_clean, cfg.num_range_cells,
-                      cfg.num_doppler_cells, window=win,
-                      short_filt=cfg.caf_short_filt)
+    return _caf_windowed(ref, srv_clean, cfg)
 
 
 def _process_frames_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
@@ -148,6 +163,57 @@ def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
                                 _to_device(phases, dev), cfg)
 
 
+def _process_groups_impl(raw_refs: torch.Tensor, raw_srvs: torch.Tensor,
+                         phases: torch.Tensor,
+                         cfg: RadarConfig) -> torch.Tensor:
+    return torch.stack([_process_frames_impl(r, s, p, cfg)
+                        for r, s, p in zip(raw_refs, raw_srvs, phases)])
+
+
+def process_frames_groups(raw_refs, raw_srvs, phases, cfg: RadarConfig,
+                          device=None) -> torch.Tensor:
+    """process_frames over G stacked batches in one call: raw_* (G, F, ...)
+    and phases (G, F), each batch self-contained halo-wise exactly as G
+    separate process_frames calls. Returns (G, F, num_doppler_cells,
+    num_range_cells+1) complex64 on ``device`` (default CUDA).
+
+    Where the JAX package scans the G batches inside one compiled program
+    to pay its launch overhead once, eager PyTorch launches every batch's
+    kernels anyway: this is a loop over the G batches."""
+    dev = resolve_device(device)
+    return _process_groups_impl(_to_device(raw_refs, dev),
+                                _to_device(raw_srvs, dev),
+                                _to_device(phases, dev), cfg)
+
+
+def process_frames_shmap(raw_ref, raw_srv, phases, cfg: RadarConfig,
+                         mesh) -> list:
+    """The frame batch split over ``mesh`` (parallel/mesh.FrameMesh).
+
+    The frame axis is cut into ``len(mesh)`` contiguous blocks, block i on
+    ``mesh.devices[i]``; each block is preprocessed and clutter-cancelled
+    on its device, the CPI-overlap halo is exchanged between neighbouring
+    blocks (parallel/halo.local_overlap: the only traffic between shards),
+    and each block's CAF runs on its device. raw_*, phases as for
+    process_frames (numpy or tensors on any device); the frame count must
+    divide the mesh. Returns the per-shard (F/len(mesh), num_doppler_cells,
+    num_range_cells+1) complex64 map blocks in frame order, each on its
+    shard's device; their concatenation equals process_frames."""
+    refs, srvs, phs = (split_frames(_as_tensor(x), mesh)
+                       for x in (raw_ref, raw_srv, phases))
+    ref_blocks, clean_blocks = [], []
+    for r, s, p in zip(refs, srvs, phs):
+        ref = _preprocess_impl(r, p, cfg)
+        ref_blocks.append(ref)
+        clean_blocks.append(_clutter_impl(ref, _preprocess_impl(s, p, cfg),
+                                          cfg))
+    if cfg.window_overlap:
+        ref_blocks = local_overlap(ref_blocks, cfg.window_overlap)
+        clean_blocks = local_overlap(clean_blocks, cfg.window_overlap)
+    return [_caf_windowed(r, s, cfg)
+            for r, s in zip(ref_blocks, clean_blocks)]
+
+
 def frame_phases(cfg: RadarConfig, frame_indices: Sequence[int]) -> np.ndarray:
     """Mixing phases for a set of global frame indices (main.py:125-130)."""
     n = int(np.max(frame_indices)) + 1 if len(frame_indices) else 0
@@ -169,7 +235,7 @@ def capture_frame_count(reader, cfg: RadarConfig) -> int:
 
 def run_capture(reader, writer, cfg: RadarConfig,
                 batch_frames: int | None = None, progress: bool = True,
-                device=None) -> int:
+                device=None, dispatch_groups: int = 1, mesh=None) -> int:
     """Host loop: stream a capture through the device pipeline in batches.
 
     reader: io.hdf5.CaptureReader-like (``num_frames``, ``read_pair_frames``
@@ -180,22 +246,41 @@ def run_capture(reader, writer, cfg: RadarConfig,
     past the end) so the CPI-overlap halo at batch boundaries is exact.
     Resume skips the frames the writer already holds. Returns the frame
     count of the run.
+
+    A sharded reader (``CaptureReader.shard``) reads one margin frame into
+    each neighbouring process's range and takes its mixing phases from the
+    global frame index (``frame_offset``). ``mesh``
+    (parallel/mesh.FrameMesh) splits each batch over its devices
+    (process_frames_shmap), the buffer rounded up to a multiple of its
+    size; ``device`` is then ignored. ``dispatch_groups`` (>= 1) is taken
+    for the JAX package's signature and ignored: eager PyTorch launches
+    every batch's kernels whether or not G batches share a call, so a
+    grouped dispatch saves no launch and only delays the first batch's
+    copy and write (process_frames_groups is the grouped call as a
+    library function).
     """
-    dev = resolve_device(device)
+    if int(dispatch_groups) < 1:
+        raise ValueError(
+            f"dispatch_groups must be >= 1, got {dispatch_groups}")
     total = capture_frame_count(reader, cfg)
     bf = batch_frames or cfg.frame_batch
 
     # the frame after the last one written is read as the right margin
     # when the capture holds it; under strict_frame_parity the reference
     # trims to N-1 frames first and overlaps with boundary=0
-    # (main.py:116-120 then 180-181), so the last frame's right halo is zero
-    margin_hi = total < reader.num_frames and not cfg.strict_frame_parity
+    # (main.py:116-120 then 180-181), so the last frame's right halo is
+    # zero. A sharded reader's interior edges read into the neighbour's
+    # range.
+    margin_lo = bool(getattr(reader, "frame_margin_before", False))
+    margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
+        total < reader.num_frames and not cfg.strict_frame_parity)
+    frame0 = int(getattr(reader, "frame_offset", 0))
 
     batches = []
     done = getattr(writer, "frames_done", 0)
     while done < total:
         count = min(bf, total - done)
-        lo = done - 1 if done > 0 else 0
+        lo = done - 1 if (done > 0 or margin_lo) else 0
         hi = min(total + (1 if margin_hi else 0), done + count + 1)
         batches.append((done, count, lo, hi))
         done += count
@@ -207,7 +292,13 @@ def run_capture(reader, writer, cfg: RadarConfig,
 
     lc = cfg.input_chunk_length // 2
     buf_n = bf + 2
-    pin = dev.type == "cuda"
+    if mesh is not None:
+        devs = tuple(mesh.devices)
+        buf_n = -(-buf_n // len(mesh)) * len(mesh)
+    else:
+        dev = resolve_device(device)
+        devs = (dev,)
+    pin = any(d.type == "cuda" for d in devs)
     tdt = torch.int16 if pdt == np.int16 else torch.float32
     map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
     # two sets of host buffers, used in turn: set s is refilled two batches
@@ -219,10 +310,33 @@ def run_capture(reader, writer, cfg: RadarConfig,
             for _ in range(2)]
     done = getattr(writer, "frames_done", 0)
 
+    def dispatch(bufs, phases):
+        """One batch's maps as (buf_n, ...) on the host, with the events
+        to wait for before reading them."""
+        ph = torch.from_numpy(phases)
+        if mesh is not None:
+            blocks = process_frames_shmap(bufs["ref"], bufs["srv"], ph, cfg,
+                                          mesh)
+        else:
+            blocks = [_process_frames_impl(
+                bufs["ref"].to(dev, non_blocking=True),
+                bufs["srv"].to(dev, non_blocking=True), ph.to(dev), cfg)]
+        if not pin:
+            return torch.cat(blocks), []
+        events, at = [], 0
+        for b in blocks:
+            bufs["out"][at:at + b.shape[0]].copy_(b, non_blocking=True)
+            at += b.shape[0]
+            if b.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(b.device))
+                events.append(event)
+        return bufs["out"], events
+
     def finish(item):
         nonlocal done
-        start, count, maps, event = item
-        if event is not None:
+        start, count, maps, events = item
+        for event in events:
             event.synchronize()
         writer.write(maps[1:1 + count].numpy(), start)
         done += count
@@ -242,19 +356,12 @@ def run_capture(reader, writer, cfg: RadarConfig,
             buf[slot0:slot0 + nread] = raw if pair_mode else \
                 raw.view(np.float32).reshape(nread, lc, 2)
         phases = np.zeros(buf_n, np.float32)
-        phases[slot0:slot0 + nread] = frame_phases(cfg, list(range(lo, hi)))
-        maps = _process_frames_impl(bufs["ref"].to(dev, non_blocking=True),
-                                    bufs["srv"].to(dev, non_blocking=True),
-                                    torch.from_numpy(phases).to(dev), cfg)
-        event = None
-        if pin:
-            bufs["out"].copy_(maps, non_blocking=True)
-            maps = bufs["out"]
-            event = torch.cuda.Event()
-            event.record()
+        phases[slot0:slot0 + nread] = frame_phases(
+            cfg, list(range(frame0 + lo, frame0 + hi)))
+        maps, events = dispatch(bufs, phases)
         if pending is not None:
             finish(pending)
-        pending = (start, count, maps, event)
+        pending = (start, count, maps, events)
     if pending is not None:
         finish(pending)
     if progress:

@@ -17,8 +17,9 @@ Surfaces:
   * ``WidebandStreamingProcessor``: real-time push-per-CPI processing with
     per-channel CAF + CFAR + multitarget tracking.
 
-The JAX package's ``_to_complex`` is ``ops/util.as_complex`` here. Its
-channel-sharded ``wideband_frames_shmap`` (``mesh=``) is not ported.
+``wideband_frames_shmap`` (``run_wideband_capture(mesh=...)``, ``cli.wideband
+--shard``) splits the selected channels over the devices of a mesh. The JAX
+package's ``_to_complex`` is ``ops/util.as_complex`` here.
 """
 
 from __future__ import annotations
@@ -34,10 +35,10 @@ from passiveradar_torch.detect.trackers import init_tracks, \
     multitarget_step, to_host
 from passiveradar_torch.ops.caf import fast_xambg, resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
-from passiveradar_torch.ops.channelizer import channelize_pair
+from passiveradar_torch.ops.channelizer import channelize, channelize_pair
 from passiveradar_torch.ops.clutter import ls_filter_multiple
 from passiveradar_torch.ops.util import as_complex, to_host_complex
-from passiveradar_torch.pipeline import _window_tensor
+from passiveradar_torch.pipeline import _as_tensor, _window_tensor
 from passiveradar_torch.streaming import DETAILS, StreamResult, \
     _fetch_summary
 
@@ -145,11 +146,76 @@ def wideband_frames(raw_ref, raw_srv, cfg: RadarConfig,
                         + maps.shape[1:])
 
 
+def wideband_frames_shmap(raw_ref, raw_srv, cfg: RadarConfig,
+                          mesh) -> list:
+    """wideband_frames with the selected channels split over ``mesh``
+    (parallel/mesh.FrameMesh), the per-illuminator parallel axis.
+
+    The channelizer is not repeated on every shard: the input's time axis
+    is split, and each shard branch-filters and FFTs its own time block on
+    its device. That is exact because the per-branch FIR is causal: the
+    left neighbour's last taps_per_branch − 1 polyphase rows are the
+    block's halo (zero on shard 0, as the global zero pad). Each shard
+    keeps the selected channels of its block; copies then gather every
+    time block of shard j's channel block onto shard j (the JAX package's
+    tiled all_to_all), and each shard runs its channels' clutter and CAF
+    chains. raw_*: as for wideband_frames (numpy or tensors). The selected
+    channels and cpi_samples must divide the mesh. Returns the per-shard
+    (F, len(select)/n, num_doppler_cells, num_range_cells+1) complex64 map
+    blocks in channel order, each on its shard's device.
+    """
+    n = len(mesh)
+    k = cfg.wideband_channels
+    t = cfg.wideband_taps_per_branch
+    sel = list(cfg.wideband_channel_select)
+    if len(sel) % n:
+        raise ValueError(f"wideband_frames_shmap: {len(sel)} selected "
+                         f"channels do not divide the {n}-shard mesh")
+    if cfg.cpi_samples % n:
+        raise ValueError(f"wideband_frames_shmap: {cfg.cpi_samples} "
+                         f"per-channel samples do not divide the {n}-shard "
+                         "mesh")
+    mb = cfg.cpi_samples // n               # channel-rate samples a shard
+    if mb < t - 1:
+        raise ValueError(f"wideband_frames_shmap: {mb} samples a shard are "
+                         f"fewer than the FIR's {t - 1}-row halo")
+    sl = len(sel) // n                      # channels a shard
+
+    def channel_blocks(raw):
+        x = as_complex(_as_tensor(raw))
+        f = x.shape[0]
+        xbs = [b.reshape(f, mb, k).to(dev, non_blocking=True)
+               for b, dev in zip(torch.chunk(x[:, :n * mb * k], n, dim=1),
+                                 mesh.devices)]
+        picked = []
+        for i, (xb, dev) in enumerate(zip(xbs, mesh.devices)):
+            halo = xbs[i - 1][:, mb - (t - 1):].to(dev, non_blocking=True) \
+                if i > 0 else torch.zeros((f, t - 1, k), dtype=xb.dtype,
+                                          device=dev)
+            ext = torch.cat([halo, xb], dim=1)          # (F, mb+t-1, K)
+            # rows from t-1 on have their whole causal FIR history
+            picked.append(channelize(ext.reshape(f, -1), k, t)
+                          [:, t - 1:, sel])
+        # (time block, all selected channels) → (all time, own channels)
+        out = []
+        for j, dev in enumerate(mesh.devices):
+            mine = torch.cat([p[:, :, j * sl:(j + 1) * sl].to(
+                dev, non_blocking=True) for p in picked], dim=1)
+            out.append(mine.transpose(1, 2).reshape(-1, cfg.cpi_samples))
+        return out
+
+    maps = []
+    for refc, srvc in zip(channel_blocks(raw_ref), channel_blocks(raw_srv)):
+        m = channel_caf(refc, channel_clean(refc, srvc, cfg), cfg)
+        maps.append(m.reshape((-1, sl) + m.shape[1:]))
+    return maps
+
+
 def run_wideband_capture(reader, cfg: RadarConfig,
                          batch_frames: int | None = None,
                          writers: dict | None = None,
                          progress: bool = True, integrate: bool = False,
-                         device=None) -> int:
+                         device=None, mesh=None) -> int:
     """Host loop: stream a wideband capture into per-channel map stacks on
     ``device`` (default: the CUDA card).
 
@@ -158,13 +224,15 @@ def run_wideband_capture(reader, cfg: RadarConfig,
     shape (a zero-padded final batch). ``integrate``: also write the
     noncoherently integrated multi-illuminator stack (integrate_channels,
     summed on the device before the copy to the host) to
-    integrated_path(cfg), in the same /xambg file contract. Returns the
-    number of CPIs.
+    integrated_path(cfg), in the same /xambg file contract. ``mesh``
+    (parallel/mesh.FrameMesh): split the selected channels over its
+    devices (wideband_frames_shmap); ``device`` is then ignored. Returns
+    the number of CPIs.
     """
     from passiveradar_torch.io.hdf5 import PrefetchReader
     from passiveradar_torch.io.writers import MapWriter
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     total = min(reader.num_frames, cfg.num_frames)
     bf = batch_frames or cfg.frame_batch
     select = cfg.wideband_channel_select
@@ -187,13 +255,16 @@ def run_wideband_capture(reader, cfg: RadarConfig,
             buf_srv[:count] = srv_raw
             buf_ref[count:] = 0
             buf_srv[count:] = 0
-            maps_dev = wideband_frames(buf_ref, buf_srv, cfg, device=dev)
-            maps = maps_dev[:count].cpu().numpy()    # (count, S, nf, R+1)
+            blocks = [wideband_frames(buf_ref, buf_srv, cfg, device=dev)] \
+                if mesh is None else \
+                wideband_frames_shmap(buf_ref, buf_srv, cfg, mesh)
+            # (count, S, nf, R+1), the shards' channel blocks in order
+            maps = torch.cat([b[:count].cpu() for b in blocks], dim=1).numpy()
             for i, k in enumerate(select):
                 writers[k].write(maps[:, i], start)
             if int_writer is not None:
-                integ = maps_dev[:count].abs().sum(dim=1).cpu().numpy()
-                int_writer.write(integ.astype(np.complex64), start)
+                integ = sum(b[:count].abs().sum(dim=1).cpu() for b in blocks)
+                int_writer.write(integ.numpy().astype(np.complex64), start)
             done += count
             if progress:
                 print(f"\r  processed {done}/{total} wideband CPIs", end="",

@@ -146,7 +146,8 @@ def wide(tmp_path_factory):
 def test_wideband_cli_integrate(wide, tmp_path, monkeypatch):
     """cli.wideband --integrate: channel stacks against the JAX CLI's, the
     echo at its cell in every CPI of every channel and of the integrated
-    stack, which renders through cli.plot --input; --shard is refused."""
+    stack, which renders through cli.plot --input; --shard (a one-device
+    channel mesh here) writes the same channel stacks."""
     from passiveradar_tpu.cli.wideband import main as j_main
     ws, paths = wide
     cfg_j = j_derive(yaml.safe_load(paths["J"].read_text()))
@@ -158,9 +159,10 @@ def test_wideband_cli_integrate(wide, tmp_path, monkeypatch):
     nf, r = cfg.num_doppler_cells, cfg.num_range_cells
     cell = (nf // 2 - round(WB_ECHO["dop"] / cfg.doppler_cell_width),
             r - WB_ECHO["delay"] // cfg.wideband_channels)
+    stacks = {}
     for ch in cfg.wideband_channel_select:
         with h5py.File(channel_path(cfg, ch)) as f:
-            got = np.asarray(f["/xambg"])
+            got = stacks[ch] = np.asarray(f["/xambg"])
         with h5py.File(j_channel_path(cfg_j, ch)) as f:
             want = np.asarray(f["/xambg"])
         assert got.shape == want.shape == (nf, r + 1, WB_CPIS)
@@ -179,9 +181,12 @@ def test_wideband_cli_integrate(wide, tmp_path, monkeypatch):
     tplot.main(["--config", str(paths["T"]), "--mode", "frames",
                 "--input", integrated_path(cfg), "--device", "cpu"])
     assert len(os.listdir(tmp_path / "IMG")) == WB_CPIS
-    with pytest.raises(SystemExit):
-        twide.main(["--config", str(paths["T"]), "--shard",
-                    "--device", "cpu"])
+    assert twide.main(["--config", str(paths["T"]), "--shard",
+                       "--device", "cpu"]) == WB_CPIS
+    for ch, want in stacks.items():
+        with h5py.File(channel_path(cfg, ch)) as f:
+            got = np.asarray(f["/xambg"])
+        assert np.max(np.abs(got - want)) <= 1e-4 * np.max(np.abs(want))
 
 
 def _confirmed(out):

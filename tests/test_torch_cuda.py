@@ -638,3 +638,100 @@ def test_ls_filter_impls_fused_route_launches(cuda, monkeypatch, impl,
     torch.cuda.synchronize()
     assert fk.fft_fused.launches == before + launches
     assert (got - want).abs().max().item() < 2e-4
+
+
+def _tiny_frames(nfr, **over):
+    cfg = derive_config(dict(input_sample_rate=49152,
+                             input_center_freq=1_000_000,
+                             channel_freq=990_170, channel_bandwidth=12800,
+                             cpi_seconds_nominal=1.0,
+                             max_doppler_nominal=128.0,
+                             max_range_nominal=400.0, **over))
+    ref, srv = synth_capture_arrays(cfg, nfr, targets=(Target(40, 20.0, 0.1),))
+    length = cfg.input_chunk_length
+    return (cfg, ref[:nfr * length].reshape(nfr, length),
+            srv[:nfr * length].reshape(nfr, length),
+            frame_phases(cfg, list(range(nfr))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ls_multiple", "nlms_pallas"])
+def test_process_frames_shmap_on_one_card_matches_process_frames(cuda,
+                                                                 method):
+    """Two shards on the one card: blocks on the card, each shard's
+    preprocess through the resampler kernel (2 launches a shard) and, under
+    nlms_pallas, the NLMS kernel (1 a shard); 4 halo exchanges; maps within
+    1e-4 of process_frames on the card."""
+    from passiveradar_torch.parallel.halo import local_overlap
+    from passiveradar_torch.parallel.mesh import make_mesh
+    from passiveradar_torch.pipeline import process_frames_shmap
+    cfg, ref, srv, ph = _tiny_frames(4, clutter_method=method)
+    mesh = make_mesh(devices=[cuda, cuda])
+    want = process_frames(ref, srv, ph, cfg, device=cuda).cpu().numpy()
+    b1, b2, ex = (rk.mix_regroup_matmul.launches, nk.nlms_filter_batch.launches,
+                  local_overlap.exchanges)
+    blocks = process_frames_shmap(ref, srv, ph, cfg, mesh)
+    torch.cuda.synchronize()
+    assert [b.device for b in blocks] == [cuda, cuda]
+    assert rk.mix_regroup_matmul.launches - b1 == 4
+    assert nk.nlms_filter_batch.launches - b2 == (
+        2 if method == "nlms_pallas" else 0)
+    assert local_overlap.exchanges - ex == 4
+    got = torch.cat(blocks).cpu().numpy()
+    assert np.max(np.abs(got - want)) < 1e-4 * np.max(np.abs(want))
+
+
+@pytest.mark.cuda
+def test_process_frames_groups_card_matches_loop(cuda):
+    """Two groups of 3 frames on the card: each group exactly its own
+    process_frames call, 2 resampler launches a group."""
+    from passiveradar_torch.pipeline import process_frames_groups
+    cfg, ref, srv, _ = _tiny_frames(6)
+    refs, srvs = ref.reshape(2, 3, -1), srv.reshape(2, 3, -1)
+    phs = np.stack([frame_phases(cfg, [0, 1, 2]),
+                    frame_phases(cfg, [3, 4, 5])])
+    before = rk.mix_regroup_matmul.launches
+    got = process_frames_groups(refs, srvs, phs, cfg).cpu().numpy()
+    assert rk.mix_regroup_matmul.launches - before == 4
+    for g in range(2):
+        loop = process_frames(refs[g], srvs[g], phs[g], cfg).cpu().numpy()
+        np.testing.assert_array_equal(got[g], loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_fast_xambg_tp_on_one_card_matches_fast_xambg(cuda, n):
+    from passiveradar_torch.ops.caf import fast_xambg, fast_xambg_tp
+    from passiveradar_torch.parallel.mesh import make_mesh
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ref = torch.randn(8192, dtype=torch.complex64, generator=gen, device=cuda)
+    srv = torch.randn(8192, dtype=torch.complex64, generator=gen, device=cuda)
+    want = fast_xambg(ref, srv, 15, 128, window=("kaiser", 5.0))
+    blocks = fast_xambg_tp(ref, srv, 15, 128,
+                           make_mesh(devices=[cuda] * n, axis_name="tp"),
+                           window=("kaiser", 5.0))
+    got = torch.cat(blocks, dim=1)
+    assert (got - want).abs().max().item() < 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_wideband_frames_shmap_on_one_card_matches_wideband_frames(cuda):
+    from passiveradar_torch.io.synthetic import wideband_capture_arrays
+    from passiveradar_torch.parallel.mesh import make_mesh
+    from passiveradar_torch.wideband import wideband_frames, \
+        wideband_frames_shmap
+    cfg = derive_config(dict(
+        input_sample_rate=65536, input_center_freq=0, channel_freq=0,
+        channel_bandwidth=65536, cpi_seconds_nominal=0.25,
+        max_doppler_nominal=128.0, max_range_nominal=600.0,
+        wideband_channels=4, wideband_channel_select=(1, 2)))
+    ref, srv = wideband_capture_arrays(cfg, 2, delay_samples=48,
+                                       doppler_hz=40.0, seed=3)
+    n = cfg.cpi_samples * cfg.wideband_channels
+    ref = ref.view(np.complex64)[:2 * n].reshape(2, n)
+    srv = srv.view(np.complex64)[:2 * n].reshape(2, n)
+    want = wideband_frames(ref, srv, cfg, device=cuda)
+    blocks = wideband_frames_shmap(
+        ref, srv, cfg, make_mesh(devices=[cuda, cuda], axis_name="channels"))
+    got = torch.cat(blocks, dim=1)
+    assert (got - want).abs().max().item() < 1e-4 * want.abs().max().item()

@@ -110,6 +110,20 @@ def test_default_device_raises_without_cuda(tmp_path):
         lambda: wb.run_wideband_capture(None, wcfg),
         lambda: wb.WidebandStreamingProcessor(wcfg),
     ]
+    # the meshes, the grouped pipeline and the multi-process runtime
+    from passiveradar_torch.parallel.distributed import (
+        process_device, run_capture_multihost)
+    from passiveradar_torch.parallel.mesh import local_mesh, make_mesh
+    from passiveradar_torch.pipeline import process_frames_groups
+    calls += [
+        make_mesh,
+        local_mesh,
+        lambda: make_mesh(1),
+        lambda: process_frames_groups(raw[None], raw[None],
+                                      np.zeros((1, 1), np.float32), cfg),
+        process_device,
+        lambda: run_capture_multihost(cfg),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -125,8 +139,10 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
         input_file=str(tmp_path / "missing.hdf5"), input_sample_rate=49152,
         input_center_freq=1_000_000, channel_freq=990_170,
         channel_bandwidth=12800, cpi_seconds_nominal=1.0)))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        main(["--config", str(cfg_path)])
+    for extra in ([], ["--shard"], ["--dispatch-groups", "2"],
+                  ["--num-processes", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--config", str(cfg_path)] + extra)
 
     # the post-processing CLIs, and cli.wideband and cli.stream on a
     # wideband configuration
@@ -137,11 +153,13 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
         input_file=str(tmp_path / "missing.hdf5"), input_sample_rate=65536,
         input_center_freq=0, channel_freq=0, channel_bandwidth=65536,
         cpi_seconds_nominal=0.25, wideband_channels=4)))
-    for cli, path in ((plot, cfg_path), (track_multi, cfg_path),
-                      (track_simple, cfg_path), (wideband, wide_path),
-                      (stream, wide_path)):
+    for cli, path, extra in ((plot, cfg_path, []), (track_multi, cfg_path, []),
+                             (track_simple, cfg_path, []),
+                             (wideband, wide_path, []),
+                             (wideband, wide_path, ["--shard"]),
+                             (stream, wide_path, [])):
         with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main(["--config", str(path)])
+            cli.main(["--config", str(path)] + extra)
 
 
 def test_ops_exports_the_jax_ops_api():

@@ -241,12 +241,29 @@ def test_cli_zarr_capture_and_maps_match_hdf5(workspace):
 
 
 def test_cli_rejects_flags_not_ported(workspace):
-    _, cfg_path, _, _ = workspace
+    """Every flag of the JAX CLI is ported now: --shard (a mesh of the one
+    CPU device here) with --dispatch-groups writes the plain run's stack;
+    what is refused is a flag the JAX CLI lacks, or fewer than 1 group."""
+    ws, cfg_path, _, _ = workspace
     from passiveradar_torch.cli.process import main as t_main
-    for extra in (["--shard"], ["--dispatch-groups", "2"],
-                  ["--profile", "trace"]):
+    for extra in (["--dispatch-groups", "0"], ["--no-such-flag"]):
         with pytest.raises(SystemExit):
             t_main(["--config", cfg_path, "--device", "cpu"] + extra)
+    path = str(ws / "XAMBG_T.hdf5")
+    if not os.path.exists(path):
+        t_main(["--config", cfg_path, "--device", "cpu"])
+    want, _ = _xambg(path)
+    params = yaml.safe_load(open(cfg_path))
+    params["output_fname"] = str(ws / "XAMBG_FLAGS")
+    flags_cfg = ws / "config_flags.yaml"
+    flags_cfg.write_text(yaml.safe_dump(params))
+    for extra in (["--shard"], ["--dispatch-groups", "2"]):
+        assert t_main(["--config", str(flags_cfg), "--device", "cpu"]
+                      + extra) == 6
+        got, done = _xambg(str(ws / "XAMBG_FLAGS.hdf5"))
+        assert done == 6
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.max(np.abs(want)))
 
 
 @pytest.mark.parametrize("method", ["nlms", "nlms_pallas"])
