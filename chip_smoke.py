@@ -85,7 +85,22 @@ Phases, one JSON line each; any failure exits non-zero:
    processes sharing the card over gloo, then ``cli.concat``, against the
    single-process maps and one process alone; one FM CPI through
    fast_xambg_tp on 2 and 4 shards of the card; wideband_frames_shmap on
-   2 shards and ``cli.wideband --shard``.
+   2 shards and ``cli.wideband --shard``;
+13. the last modules: ``synth_capture_device`` on the card at the FM
+   geometry (16 frames of the main path's scene, both output forms,
+   seconds and peak memory, the scene's levels) and its first 8 + 2 frames
+   through process_frames (the strong target at its cell); ``caf_batch``
+   on that batch against process_frames' maps (difference 0) and its ms;
+   ``cli.preview``'s numeric core on the main path's capture, card against
+   CPU; the native ingest helper (``csrc/pr_io.cc``) built by g++ into
+   the port's build directory, bit-equal to numpy at NATIVE_N samples,
+   ms against numpy's, the JAX package's ``native/libpr_io.so``
+   untouched; and the batch-width sweep: process_frames at SWEEP_WIDTHS
+   frames a batch for ``ls_multiple`` and ``nlms_pallas`` on two
+   device-resident 66-frame captures (the shared frames against the
+   8-frame batch's, launches and peak memory a call, the largest width's
+   footprint reckoned first, frames/s from the median of SWEEP_RUNS runs
+   with the widths in turns).
 
 ``python3 chip_smoke.py --parallel`` runs the build, the main path of
 step 4 and step 12 alone (on several cards: a mesh of every card, a
@@ -212,6 +227,18 @@ MP_FRAMES = 15           # frames of the multi-process run: 7 + 8
 MP_TOL = 1e-3
 TP_TOL = 1e-5            # tensor-parallel CAF (tests/test_caf.py)
 WIDE_SHARD_TOL = 1e-4    # sharded wideband path (tests/test_wideband.py)
+# step 13: the FM scene generated on the card (targets of the main path's
+# capture, as (delay samples, Doppler Hz, amplitude))
+SYNTH_FRAMES = 16
+SYNTH_TARGETS = ((200, 40.0, 0.05), (500, -80.0, 0.03))
+PREVIEW_TOL = 1e-4       # preview arrays, card vs CPU, over the peak
+NATIVE_N = 20_000_000    # samples of the native helpers' checks
+# the batch-width sweep: frames a batch (each + 2 halo frames), timed runs
+# of each width, widths in turns; the frames that two batches share within
+# the sharded-map bound (LS turns another cuFFT batch into ~1e-4)
+SWEEP_WIDTHS = (8, 16, 32, 64)
+SWEEP_RUNS = 5
+SWEEP_TOL = 1e-3
 
 
 def emit(obj):
@@ -2703,6 +2730,305 @@ def phase_wideband_shard(torch, dev):
     return counts
 
 
+def synth_targets():
+    from passiveradar_torch.io.synthetic import Target
+    return tuple(Target(*t) for t in SYNTH_TARGETS)
+
+
+def phase_synth_device(torch, dev, cfg):
+    """synth_capture_device on the card at the FM geometry, SYNTH_FRAMES
+    frames of the main path's scene from seed 7, in both output forms
+    (seconds, peak memory; the two forms one stream), the scene's levels,
+    and its first BATCH + 2 frames through process_frames (launch counts
+    set to 0 just before it): the strong target at STRONG_CELL, the weak
+    one reported. Returns (ref, srv, phases, maps, counts)."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.io.synthetic import synth_capture_device
+
+    out, secs, peak = {}, {}, {}
+    for form in ("interleaved", "complex"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[form], ms = synced_ms(torch, lambda: synth_capture_device(
+            cfg, SYNTH_FRAMES, targets=synth_targets(), seed=7,
+            complex_output=form == "complex", device=dev))
+        secs[form] = ms / 1e3
+        peak[form] = torch.cuda.max_memory_allocated() - base
+    ref, srv = out["complex"]
+    half = cfg.input_chunk_length // 2
+    same = all(torch.equal(torch.view_as_real(c).reshape(i.shape), i)
+               for c, i in zip(out["complex"], out["interleaved"]))
+    del out
+    mean_abs_ref = float(ref.abs().mean())
+    srv_power = float((srv.abs() ** 2).mean())
+    want_power = 0.5 ** 2 + sum(t[2] ** 2 for t in SYNTH_TARGETS)
+    f = BATCH + 2
+    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+    zero_counts()
+    maps = pl.process_frames(ref[:f], srv[:f], ph, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    stack = maps.permute(1, 2, 0).cpu().numpy()
+    finite = bool(np.isfinite(stack).all())
+    strong, weak, _ = ground_truth_peaks(stack)
+    emit(dict(phase="synth_device", frames=SYNTH_FRAMES,
+              shape=list(ref.shape), seconds=secs,
+              peak_memory_bytes=peak, forms_one_stream=same,
+              mean_abs_ref=mean_abs_ref, srv_power=srv_power,
+              srv_power_expected=want_power, batch_frames=f,
+              launches=counts, finite=finite, strong_peak=strong,
+              weak_peak=weak, weak_within_1_cell_of=WEAK_CELL,
+              weak_within_1_cell=all(abs(a - b) <= 1
+                                     for a, b in zip(weak, WEAK_CELL))))
+    if (tuple(ref.shape) != (SYNTH_FRAMES, half) or not same
+            or abs(mean_abs_ref - 1) > 1e-2
+            or abs(srv_power / want_power - 1) > 0.05 or not finite
+            or strong != STRONG_CELL
+            or counts["mix_regroup_matmul"] != 2):
+        raise AssertionError(f"synth_device: shape {tuple(ref.shape)}, one "
+                             f"stream {same}, |ref| {mean_abs_ref}, power "
+                             f"{srv_power} / {want_power}, finite {finite}, "
+                             f"strong {strong}, launches {counts}")
+    return ref[:f], srv[:f], ph, maps, counts
+
+
+def phase_caf_batch(torch, dev, cfg, ref, srv, ph, want):
+    """caf_batch on the synth_device batch's preprocessed, cancelled frames
+    equals process_frames' maps (difference 0); its ms (CUDA events)."""
+    from passiveradar_torch import pipeline as pl
+    r_if = pl.preprocess_batch(ref, ph, cfg, device=dev)
+    clean = pl.clutter_batch(r_if, pl.preprocess_batch(srv, ph, cfg,
+                                                       device=dev),
+                             cfg, device=dev)
+    zero_counts()
+    got = pl.caf_batch(r_if, clean, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    diff = float((got - want).abs().max())
+    ms = cuda_ms(torch, lambda: pl.caf_batch(r_if, clean, cfg, device=dev),
+                 iters=10)
+    emit(dict(phase="caf_batch", frames=int(got.shape[0]),
+              max_abs_diff_vs_process_frames=diff, ms=ms, launches=counts))
+    if diff != 0 or tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"caf_batch differs from process_frames by "
+                             f"{diff}")
+    return counts
+
+
+def phase_preview(torch, dev, cfg):
+    """cli.preview's numeric core (preview_arrays) on the main path's FM
+    capture, on the card and on the CPU: the offset equal, the PSDs within
+    PREVIEW_TOL of the peak in linear power, |xcorr| within PREVIEW_TOL of
+    its peak with the argmax equal; the offset search's ms and the core's
+    (warm on the card)."""
+    from passiveradar_torch.cli.preview import preview_arrays
+    from passiveradar_torch.io.hdf5 import CaptureReader
+
+    res, ms, counts = {}, {}, None
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        reader, off_ms = synced_ms(torch, lambda: CaptureReader(
+            cfg, estimate_offset=True, max_offset_lags=50_000,
+            device=where))
+        if tag == "card":
+            preview_arrays(cfg, reader, where)
+            zero_counts()
+        res[tag], core_ms = synced_ms(
+            torch, lambda: preview_arrays(cfg, reader, where))
+        if tag == "card":
+            counts = read_counts()
+        reader.close()
+        ms[tag] = dict(offset_search=off_ms, preview_arrays=core_ms)
+    got, want = res["card"], res["cpu"]
+    rel = {}
+    for key in ("raw_psd_ref", "raw_psd_srv", "ch_psd_ref", "ch_psd_srv"):
+        g, w = 10 ** (got[key] / 10), 10 ** (want[key] / 10)
+        rel[key] = float(np.max(np.abs(g - w)) / np.max(w))
+    rel["xcorr"] = float(np.max(np.abs(got["xcorr"] - want["xcorr"]))
+                         / np.max(want["xcorr"]))
+    argmax = int(np.argmax(got["xcorr"])) - len(got["xcorr"]) // 2
+    same = argmax == int(np.argmax(want["xcorr"])) - len(want["xcorr"]) // 2
+    emit(dict(phase="preview", offset=dict(card=got["offset"],
+                                           cpu=want["offset"]),
+              rel_err_card_vs_cpu=rel, xcorr_peak_lag=argmax,
+              xcorr_argmax_equal=same, ms=ms, launches=counts,
+              shapes={k: list(np.shape(v)) for k, v in got.items()
+                      if k != "offset"}))
+    if got["offset"] != want["offset"] or not same or \
+            max(rel.values()) > PREVIEW_TOL:
+        raise AssertionError(f"preview card vs CPU: offsets "
+                             f"{got['offset']}, {want['offset']}, rel {rel}, "
+                             f"argmax equal {same}")
+    return counts
+
+
+def phase_native():
+    """The native ingest helper: built by g++ into the port's csrc/build/
+    (the JAX package's native/libpr_io.so untouched), loaded, and its
+    int16 conversion and de-multiplexing (int16 and float32) bit-equal to
+    numpy at NATIVE_N samples; ms each against numpy's (median of 3)."""
+    from passiveradar_torch.io import native
+
+    jax_lib = os.path.join(ROOT, "native", "libpr_io.so")
+
+    def stamp():
+        return os.path.getmtime(jax_lib) if os.path.exists(jax_lib) else None
+
+    before = stamp()
+    path = native.build_library(force=True)
+    loaded = native.library()
+    build_dir = os.path.join(ROOT, "passiveradar_torch", "csrc", "build")
+    rng = np.random.default_rng(5)
+    x16 = rng.integers(-32768, 32767, NATIVE_N, dtype=np.int16)
+    x32 = rng.standard_normal(NATIVE_N, dtype=np.float32)
+    scale = np.float32(1 / 3)
+
+    def np_demux(x):
+        q = (x * scale if x.dtype == np.int16 else x).reshape(-1, 4)
+        return (q[:, :2].reshape(-1).view(np.complex64),
+                q[:, 2:].reshape(-1).view(np.complex64))
+
+    def median_ms(fn):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(runs))
+
+    cases = dict(
+        i16_to_f32=(lambda: native.i16_to_f32(x16, scale),
+                    lambda: x16 * scale),
+        demux2_int16=(lambda: native.demux2(x16, scale),
+                      lambda: np_demux(x16)),
+        demux2_float32=(lambda: native.demux2(x32), lambda: np_demux(x32)))
+    rows, equal = {}, True
+    for name, (fn, ref_fn) in cases.items():
+        got, ms = median_ms(fn)
+        want, np_ms = median_ms(ref_fn)
+        if name == "i16_to_f32":
+            got, want = (got,), (want,)
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        equal &= same
+        rows[name] = dict(bit_equal=same, native_ms=ms, numpy_ms=np_ms)
+    after = stamp()
+    emit(dict(phase="native", library=path, loaded=loaded, samples=NATIVE_N,
+              jax_library_mtime=dict(before=before, after=after), **rows))
+    if (path is None or loaded != path
+            or os.path.dirname(path) != build_dir or not equal
+            or before != after):
+        raise AssertionError(f"native: built {path}, loaded {loaded}, "
+                             f"bit-equal {equal}, JAX library mtime "
+                             f"{before} -> {after}")
+
+
+def phase_batch_sweep(torch, dev, params):
+    """process_frames at SWEEP_WIDTHS frames a batch (+ 2 halo frames) for
+    ls_multiple and nlms_pallas, on two device-resident FM captures from
+    synth_capture_device (seeds 7 and 8, taken in alternate runs): each
+    width's maps of the frames it shares with the BATCH-frame batch
+    (frames 1..BATCH) within SWEEP_TOL of the peak, argmax equal; launches
+    and peak memory of one call (counts set to 0 just before it); then
+    SWEEP_RUNS timed runs of every width (CUDA events), the widths in
+    turns. The largest width's footprint is reckoned from the BATCH run's
+    and printed before it runs. Returns each method and width's counts."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.synthetic import synth_capture_device
+
+    cfg = derive_config(params)
+    n = max(SWEEP_WIDTHS) + 2
+    caps = []
+    for seed in (7, 8):
+        caps.append(synth_capture_device(cfg, n, targets=synth_targets(),
+                                         seed=seed, complex_output=True,
+                                         device=dev))
+    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(n)))).to(dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    launches, rows = {}, []
+    for method in ("ls_multiple", "nlms_pallas"):
+        mcfg = derive_config(dict(params, clutter_method=method))
+
+        def run(f, cap=0):
+            ref, srv = caps[cap]
+            return pl._process_frames_impl(ref[:f + 2], srv[:f + 2],
+                                           ph[:f + 2], mcfg)
+
+        maps0, peaks, counts = None, {}, {}
+        for f in sorted(SWEEP_WIDTHS):
+            if f == max(SWEEP_WIDTHS):
+                per_frame = (peaks[BATCH] - resident) / (BATCH + 2)
+                emit(dict(phase="batch_sweep_reckoning",
+                          clutter_method=method, frames=f + 2,
+                          resident_bytes=resident,
+                          working_bytes_per_frame=per_frame,
+                          reckoned_peak_bytes=resident + per_frame * (f + 2),
+                          device_bytes=total))
+            run(f)                                  # warm this width
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            maps = run(f)
+            torch.cuda.synchronize()
+            counts[f] = read_counts()
+            peaks[f] = torch.cuda.max_memory_allocated()
+            shared = maps[1:BATCH + 1].cpu().numpy()
+            if f == BATCH:
+                maps0 = shared
+            rel, same = compare_to(shared, maps0)
+            want_b2 = 1 if method == "nlms_pallas" else 0
+            ok = (rel <= SWEEP_TOL and same and counts[f] == dict(
+                mix_regroup_matmul=2, nlms_filter_pallas=want_b2,
+                fft_fused=0) and bool(torch.isfinite(maps).all()))
+            rows.append(dict(clutter_method=method, frames=f,
+                             rel_err_vs_batch8=rel, argmax_equal=same,
+                             launches=counts[f], peak_memory_bytes=peaks[f]))
+            if not ok:
+                raise AssertionError(f"batch_sweep {method} F={f}: rel {rel},"
+                                     f" argmax equal {same}, launches "
+                                     f"{counts[f]}")
+            del maps
+        launches[method] = counts
+        times = {f: [] for f in SWEEP_WIDTHS}
+        for r in range(SWEEP_RUNS):
+            order = SWEEP_WIDTHS if r % 2 == 0 else SWEEP_WIDTHS[::-1]
+            for f in order:
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                run(f, cap=r % 2)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[f].append(ev[0].elapsed_time(ev[1]))
+        for row in rows:
+            if row["clutter_method"] == method:
+                ms = float(np.median(times[row["frames"]]))
+                row.update(ms_median=ms, ms_runs=times[row["frames"]],
+                           frames_per_s=row["frames"] / ms * 1e3)
+                emit(dict(phase="batch_sweep", **row))
+    del caps
+    return launches
+
+
+def step13(torch, dev, params, cfg) -> dict:
+    """The last modules (step 13): synth_capture_device, caf_batch,
+    cli.preview's core, the native helper and the batch-width sweep; each
+    path's launch counts by name."""
+    ref, srv, ph, maps, synth = phase_synth_device(torch, dev, cfg)
+    caf = phase_caf_batch(torch, dev, cfg, ref, srv, ph, maps)
+    del ref, srv, ph, maps
+    preview = phase_preview(torch, dev, cfg)
+    phase_native()
+    sweep = phase_batch_sweep(torch, dev, params)
+    paths = dict(synth_device=synth, caf_batch=caf, preview=preview)
+    for method, counts in sweep.items():
+        for f, c in counts.items():
+            paths[f"batch_sweep_{method}_F{f}"] = c
+    return paths
+
+
 def parallel_phases(torch, dev, params, cfg) -> dict:
     """The sharded, grouped, profiled and multi-process phases (step 12),
     after the main path; each path's launch counts by name."""
@@ -2810,13 +3136,14 @@ def main() -> int:
         stream_alt = phase_stream_alt(torch, dev, params)
         phase_ops_rest(torch, dev)
         parallel = parallel_phases(torch, dev, params, cfg)
+        last = step13(torch, dev, params, cfg)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     row["launches"] = launches
     # every path's own count (set to 0 just before it): the maps that the
     # postprocess phase reads come from the LS cli.process run
     later = dict(postprocess=post, **wide, process_alt=process_alt,
-                 stream_alt=stream_alt, **parallel)
+                 stream_alt=stream_alt, **parallel, **last)
     row["launches_by_path"] = dict(process_ls=launches,
                                    stream_ls_fused=stream["ls_multiple"]
                                    ["mix_regroup_matmul"],

@@ -4,6 +4,7 @@ from passiveradar_torch.io.hdf5 import CaptureReader
 from passiveradar_torch.io.synthetic import (
     Target,
     synth_capture_arrays,
+    synth_capture_device,
     wideband_capture_arrays,
     write_synth_capture,
     write_wideband_capture,
@@ -23,6 +24,7 @@ __all__ = [
     "write_metadata",
     "Target",
     "synth_capture_arrays",
+    "synth_capture_device",
     "write_synth_capture",
     "wideband_capture_arrays",
     "write_wideband_capture",

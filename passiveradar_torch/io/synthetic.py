@@ -10,7 +10,9 @@ plus receiver noise. Each injected target must reappear at its (delay,
 Doppler) cell of the range-Doppler maps. ``wideband_capture_arrays`` makes
 the wideband counterpart: a station in each selected channel of a
 channelized band and one echo (the scene of the JAX package's wideband
-tests).
+tests). ``synth_capture_device`` computes the FM scene on the device, in
+float32, as per-frame chunks: a capture of tens of frames is there in
+seconds, where numpy on the host would take minutes.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
+from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.io.writers import zarr_backend
+from passiveradar_torch.ops.mixer import frequency_shift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +90,81 @@ def synth_capture_arrays(cfg: RadarConfig, n_frames: int,
         return out
 
     return interleave(ref), interleave(srv)
+
+
+def _cumsum(x: torch.Tensor, row: int = 4096) -> torch.Tensor:
+    """Inclusive cumsum of a 1-D float32 tensor that is the same on every
+    run: rows of ``row`` samples scanned on the device, one row a thread
+    block in a fixed order, and the row totals carried on the host. (A
+    1-D cumsum on CUDA takes partial sums in whatever order the thread
+    blocks meet, so its float32 result changes from run to run.)"""
+    n = x.shape[0]
+    rows = torch.nn.functional.pad(x, (0, -n % row)).reshape(-1, row)
+    rows = torch.cumsum(rows, dim=1)
+    carry = np.concatenate([[0.0], np.cumsum(
+        rows[:-1, -1].double().cpu().numpy())])
+    rows += torch.from_numpy(carry.astype(np.float32)).to(x.device)[:, None]
+    return rows.reshape(-1)[:n]
+
+
+def synth_capture_device(cfg: RadarConfig, n_frames: int,
+                         targets=(Target(30, 12.0, 0.05),),
+                         direct_gain: float = 0.5,
+                         noise_level: float = 1e-3,
+                         seed: int = 0,
+                         complex_output: bool = False,
+                         device=None):
+    """The scene of synth_capture_arrays computed on ``device`` (default
+    CUDA) in float32, as per-frame chunks: (ref, srv), each
+    (n_frames, input_chunk_length) float32 interleaved IQ, or with
+    ``complex_output`` (n_frames, input_chunk_length//2) complex64.
+    The same seed gives the same output on every run.
+
+    The stream is exactly n_frames frames long (no extra frame, no channel
+    offset). The message is smoothed by an 8-tap running mean taken as a
+    difference of its cumsum, each echo is ``base`` rolled over the whole
+    stream, and the random numbers come from one torch.Generator seeded
+    with ``seed``, drawn in the order message, ref noise (re, im), srv
+    noise (re, im): the values differ from the JAX package's jax.random
+    draws, the scene does not.
+    """
+    dev = resolve_device(device)
+    half = cfg.input_chunk_length // 2
+    n = half * n_frames
+    fs = float(cfg.input_sample_rate)
+    dev_hz = 0.4 * cfg.channel_bandwidth / 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(size):
+        return torch.randn(size, generator=gen, device=dev,
+                           dtype=torch.float32)
+
+    c = _cumsum(normal(n + 8))
+    msg = (c[8:] - c[:-8]) / 8.0                        # 8-tap smoother
+    del c
+    phase = _cumsum(msg).mul_(2 * np.pi * dev_hz / fs)
+    del msg
+    base = torch.polar(torch.ones_like(phase), phase)
+    del phase
+
+    srv = direct_gain * base
+    for tg in targets:
+        echo = frequency_shift(torch.roll(base, tg.delay_samples),
+                               tg.doppler_hz, fs)
+        srv.add_(echo, alpha=tg.amplitude)
+        del echo
+    # place the channel at -offset_freq from the capture centre
+    ref = frequency_shift(base, -float(cfg.offset_freq), fs)
+    del base
+    srv = frequency_shift(srv, -float(cfg.offset_freq), fs)
+    for x in (ref, srv):
+        x.add_(torch.complex(normal(n), normal(n)), alpha=noise_level)
+    ref, srv = ref.reshape(n_frames, half), srv.reshape(n_frames, half)
+    if complex_output:
+        return ref, srv
+    return (torch.view_as_real(ref).reshape(n_frames, cfg.input_chunk_length),
+            torch.view_as_real(srv).reshape(n_frames, cfg.input_chunk_length))
 
 
 def wideband_capture_arrays(cfg: RadarConfig, n_frames: int,

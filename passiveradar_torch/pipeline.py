@@ -151,6 +151,16 @@ def clutter_batch(ref, srv, cfg: RadarConfig, device=None) -> torch.Tensor:
     return _clutter_impl(_to_device(ref, dev), _to_device(srv, dev), cfg)
 
 
+def caf_batch(ref, srv_clean, cfg: RadarConfig, device=None) -> torch.Tensor:
+    """Halo overlap + windowed CAF of one preprocessed, clutter-cancelled
+    frame batch on ``device`` (default CUDA): (F, output_chunk_length)
+    complex64 ref and srv_clean → (F, num_doppler_cells,
+    num_range_cells+1) complex64 range-Doppler frames."""
+    dev = resolve_device(device)
+    return _caf_batch_impl(_to_device(ref, dev), _to_device(srv_clean, dev),
+                           cfg)
+
+
 def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
                    device=None) -> torch.Tensor:
     """Full chain for a self-contained batch of frames (halo from within the

@@ -735,3 +735,27 @@ def test_wideband_frames_shmap_on_one_card_matches_wideband_frames(cuda):
         ref, srv, cfg, make_mesh(devices=[cuda, cuda], axis_name="channels"))
     got = torch.cat(blocks, dim=1)
     assert (got - want).abs().max().item() < 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_synth_capture_device_on_the_card(cuda):
+    """The device generator on the card: the same seed gives the same
+    samples on every run, the two output forms are one stream, and the
+    scene's levels hold (tests/test_torch_synthetic_device.py on the CPU)."""
+    from passiveradar_torch.io.synthetic import synth_capture_device
+    cfg = derive_config(dict(input_sample_rate=49152,
+                             input_center_freq=1_000_000,
+                             channel_freq=990_170, channel_bandwidth=12800,
+                             cpi_seconds_nominal=1.0))
+    targets = (Target(40, 20.0, 0.1),)
+    runs = [synth_capture_device(cfg, 6, targets=targets, seed=2,
+                                 complex_output=True, device=cuda)
+            for _ in range(2)]
+    ref, srv = synth_capture_device(cfg, 6, targets=targets, seed=2,
+                                    device=cuda)
+    for (cr, cs), other in zip(runs, runs[::-1]):
+        assert torch.equal(cr, other[0]) and torch.equal(cs, other[1])
+    assert torch.equal(torch.view_as_real(runs[0][0]).reshape(ref.shape), ref)
+    assert torch.equal(torch.view_as_real(runs[0][1]).reshape(srv.shape), srv)
+    assert abs(runs[0][0].abs().mean().item() - 1) < 1e-2
+    assert abs((runs[0][1].abs() ** 2).mean().item() / 0.26 - 1) < 0.05

@@ -27,6 +27,9 @@ def test_import_pulls_in_no_jax():
     """A fresh interpreter imports every module of the port, with h5py and
     matplotlib blocked; neither jax nor passiveradar_tpu may end up in
     sys.modules."""
+    # the CLIs that draw import matplotlib only to draw
+    assert {"passiveradar_torch.cli.preview",
+            "passiveradar_torch.cli.plot"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['h5py'] = None   # the card's host may lack h5py\n"
@@ -45,11 +48,14 @@ def test_import_pulls_in_no_jax():
 
 
 def test_source_names_no_jax():
-    """A text scan of the package: no import of jax, and no mention of the
-    JAX package's module name anywhere (code, comments or docstrings)."""
+    """A text scan of the package's Python, CUDA and C++ sources: no
+    import of jax, and no mention of the JAX package's module name anywhere
+    (code, comments or docstrings)."""
     imp = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.MULTILINE)
+    suffixes = {p.suffix for p in PKG.rglob("*")}
+    assert {".py", ".cu", ".cc"} <= suffixes
     for path in sorted(PKG.rglob("*")):
-        if path.suffix not in (".py", ".cu"):
+        if path.suffix not in (".py", ".cu", ".cc"):
             continue
         text = path.read_text()
         assert "passiveradar_tpu" not in text, path
@@ -124,6 +130,17 @@ def test_default_device_raises_without_cuda(tmp_path):
         process_device,
         lambda: run_capture_multihost(cfg),
     ]
+    # the last modules: caf_batch, the device generator and the preview
+    from passiveradar_torch.cli.preview import preview_arrays, welch_psd
+    from passiveradar_torch.io.synthetic import synth_capture_device
+    from passiveradar_torch.pipeline import caf_batch
+    if_frames = np.zeros((1, cfg.output_chunk_length), np.complex64)
+    calls += [
+        lambda: caf_batch(if_frames, if_frames, cfg),
+        lambda: synth_capture_device(cfg, 1),
+        lambda: welch_psd(np.ones(4096, np.complex64)),
+        lambda: preview_arrays(cfg, None),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -146,14 +163,15 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
 
     # the post-processing CLIs, and cli.wideband and cli.stream on a
     # wideband configuration
-    from passiveradar_torch.cli import plot, stream, track_multi, \
+    from passiveradar_torch.cli import plot, preview, stream, track_multi, \
         track_simple, wideband
     wide_path = tmp_path / "w.yaml"
     wide_path.write_text(yaml.safe_dump(dict(
         input_file=str(tmp_path / "missing.hdf5"), input_sample_rate=65536,
         input_center_freq=0, channel_freq=0, channel_bandwidth=65536,
         cpi_seconds_nominal=0.25, wideband_channels=4)))
-    for cli, path, extra in ((plot, cfg_path, []), (track_multi, cfg_path, []),
+    for cli, path, extra in ((plot, cfg_path, []), (preview, cfg_path, []),
+                             (track_multi, cfg_path, []),
                              (track_simple, cfg_path, []),
                              (wideband, wide_path, []),
                              (wideband, wide_path, ["--shard"]),

@@ -167,6 +167,36 @@ def test_concat_zarr_parts_and_keep_parts(capture):
         find_parts(zcfg)
 
 
+def test_concat_removes_zarr_parts(capture):
+    """Without --keep-parts the zarr part stores (directories) are removed
+    after the merge, and the merged stack holds every part's frames."""
+    d, params, cfg, _ = capture
+    from passiveradar_torch.io import zarr_min
+    from passiveradar_torch.io.writers import MapWriter
+    zp = dict(params, output_fname=str(d / "ZR"),
+              range_doppler_map_ftype="zarr")
+    zcfg = t_derive(zp)
+    rng = np.random.default_rng(4)
+    frames = (rng.standard_normal((5, cfg.num_doppler_cells,
+                                   cfg.num_range_cells + 1))
+              - 1j).astype(np.complex64)
+    parts = [f"{zcfg.output_fname}.part{p}.zarr" for p in (0, 1)]
+    for part, (lo, hi) in zip(parts, ((0, 3), (3, 5))):
+        w = MapWriter(zcfg, hi - lo, part)
+        w.write(frames[lo:hi], 0)
+        w.close()
+    assert all(os.path.isdir(p) for p in parts)
+    path = d / "zr.yaml"
+    path.write_text(yaml.safe_dump(zp))
+    assert concat_main(["--config", str(path)]) == 5
+    assert not any(os.path.exists(p) for p in parts)
+    assert find_parts(zcfg) == []
+    merged = zarr_min.open(zcfg.range_doppler_map_fname, mode="r")
+    assert merged.attrs["frames_done"] == 5
+    np.testing.assert_array_equal(np.moveaxis(np.asarray(merged), 2, 0),
+                                  frames)
+
+
 def test_init_distributed_rejects_coordinator_without_layout():
     """--coordinator alone must fail loudly, not run single-process."""
     with pytest.raises(ValueError, match="num_processes"):
