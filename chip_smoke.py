@@ -29,7 +29,13 @@ Phases, one JSON line each; any failure exits non-zero:
    clutter methods;
 4. main path: an FM broadcast capture (2.4 MS/s, 200 kHz channel, 2 s CPI,
    16 frames, two targets) through ``passiveradar_torch.cli.process`` on
-   the card with the LS canceller, then the same capture with
+   the card with the LS canceller; then (``hdf5``) that capture as an
+   ``.h5`` file through ``io/hdf5_min.py`` (h5py blocked), ``cli.process``
+   with the default HDF5 maps (peaks, launches, the stack bit-equal to the
+   zarr one, wall frames/s against zarr's in turns), ``--resume`` from
+   frames_done = 4, a two-part ``cli.concat``, ms a stored frame HDF5
+   against zarr, the committed h5py fixture (tests/data/h5py_fixture.h5)
+   and ``cli.track_multi``'s tracker on the HDF5 stack; then the capture with
    ``clutter_method: nlms_pallas`` and ``nlms``, each with the kernel
    launch counts of its run (counts set to 0 just before it) and the
    ground-truth peaks of the range-Doppler maps; then one FM batch of 3
@@ -113,6 +119,7 @@ beside it, the script exits non-zero and prints no result.
 
 import contextlib
 import ctypes
+import importlib.util
 import json
 import math
 import os
@@ -1825,6 +1832,213 @@ def phase_main_path(torch):
     return params, cfg, launches
 
 
+H5_FIXTURE = os.path.join("tests", "data", "make_h5py_fixture.py")
+H5_READ_TURNS = 2        # AbsMapStack passes over the 16 frames, each format
+
+
+@contextlib.contextmanager
+def subset_only():
+    """The port's HDF5 backend is io/hdf5_min.py inside the block, whether
+    or not h5py is installed (only the one sys.modules entry changes)."""
+    from passiveradar_torch.io import hdf5_min, writers
+    saved = sys.modules.get("h5py", mock.sentinel.absent)
+    sys.modules["h5py"] = None
+    try:
+        if writers.hdf5_backend() is not hdf5_min:
+            raise AssertionError("the HDF5 backend is not hdf5_min")
+        yield
+    finally:
+        if saved is mock.sentinel.absent:
+            del sys.modules["h5py"]
+        else:
+            sys.modules["h5py"] = saved
+
+
+def h5py_fixture_check() -> dict:
+    """tests/data/h5py_fixture.h5, written by h5py, read by hdf5_min: every
+    dataset equal to what its seed regenerates in numpy (deflate + shuffle
+    and a partly written chunked stack included)."""
+    from passiveradar_torch.io import hdf5_min
+    spec = importlib.util.spec_from_file_location(
+        "make_h5py_fixture", os.path.join(ROOT, H5_FIXTURE))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    want = fx.fixture_arrays()
+    with hdf5_min.File(fx.PATH) as f:
+        equal = {key: bool(np.array_equal(f[key][...], arr)
+                           and f[key].dtype == arr.dtype)
+                 for key, arr in want.items()}
+        done = int(f["/xambg"].attrs["frames_done"])
+    out = dict(datasets=equal, frames_done=done,
+               bytes=os.path.getsize(fx.PATH))
+    if not all(equal.values()) or done != fx.FRAMES_DONE:
+        raise AssertionError(f"h5py fixture read wrong: {out}")
+    return out
+
+
+def same_tree(got, want) -> bool:
+    """Nested dicts of arrays equal leaf by leaf (NaN equal to NaN)."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            same_tree(got[k], want[k]) for k in want)
+    got, want = np.asarray(got), np.asarray(want)
+    return bool(np.array_equal(got, want,
+                               equal_nan=want.dtype.kind in "fc"))
+
+
+def phase_hdf5(torch, params, cfg):
+    """The main path with the default HDF5 maps on an HDF5 capture, through
+    io/hdf5_min.py (the card's host has no h5py; blocked here if it has):
+    the main path's capture (read back from its zarr store) written as .h5
+    by io/synthetic._write_capture (s); cli.process with
+    range_doppler_map_ftype hdf5, its launches (set to 0 just before it),
+    the ground-truth peaks and the stack against the main path's zarr stack
+    (bit-equal: the same card and kernels); wall frames/s against the zarr
+    capture's in turns (zarr, hdf5, hdf5, zarr); --resume from
+    frames_done = 4 and a two-part cli.concat, each bit-equal to the
+    uninterrupted stack; AbsMapStack ms a stored frame, HDF5 against zarr
+    in turns; the committed h5py fixture; cli.track_multi's tracker on the
+    merged HDF5 stack, equal to its tracks on the zarr stack. Returns the
+    launches of the first HDF5 cli.process run."""
+    import yaml
+
+    from passiveradar_torch.cli import concat, track_multi
+    from passiveradar_torch.cli.process import main as process_main
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io import hdf5_min, zarr_min
+    from passiveradar_torch.io.synthetic import _write_capture
+    from passiveradar_torch.io.writers import AbsMapStack, MapWriter
+
+    t_phase = time.perf_counter()
+    h5py_installed = importlib.util.find_spec("h5py") is not None
+    zarr_stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname,
+                                          mode="r"))
+    batches = -(-FRAMES // BATCH)
+    p = {k: v for k, v in params.items() if k != "range_doppler_map_ftype"}
+    p.update(input_file=os.path.join(WORK, "fm_capture.h5"),
+             output_fname=os.path.join(WORK, "XAMBG_H"))
+    hcfg = derive_config(p)
+    if hcfg.range_doppler_map_ftype != "hdf5":
+        raise AssertionError("the default map format is not hdf5")
+    h5_yaml = os.path.join(WORK, "fm_h5.yaml")
+    with open(h5_yaml, "w") as fh:
+        yaml.safe_dump(p, fh)
+    z_yaml = os.path.join(WORK, "fm_zarr_turns.yaml")
+    with open(z_yaml, "w") as fh:
+        yaml.safe_dump(dict(params, output_fname=os.path.join(WORK,
+                                                              "XAMBG_ZT")),
+                       fh)
+
+    def read_h5(path):
+        with hdf5_min.File(path) as f:
+            d = f["/xambg"]
+            return d[...], int(d.attrs["frames_done"]), d.chunks
+
+    with subset_only():
+        ref, srv = (np.asarray(zarr_min.open(os.path.join(
+            params["input_file"], key.strip("/")), mode="r"))
+            for key in (cfg.input_ref_path, cfg.input_srv_path))
+        t0 = time.perf_counter()
+        _write_capture(p["input_file"], hcfg, ref, srv, None, np.float32)
+        write_s = time.perf_counter() - t0
+        del ref, srv
+        wall, launches = dict(zarr=[], hdf5=[]), None
+        for fmt in ("zarr", "hdf5", "hdf5", "zarr"):
+            zero_counts()
+            t0 = time.perf_counter()
+            n = process_main(["--config", h5_yaml if fmt == "hdf5"
+                              else z_yaml])
+            torch.cuda.synchronize()
+            wall[fmt].append(n / (time.perf_counter() - t0))
+            if n != FRAMES:
+                raise AssertionError(f"{fmt}: processed {n} of {FRAMES}")
+            if fmt == "hdf5" and launches is None:
+                launches = read_counts()
+                stack, done, chunks = read_h5(hcfg.range_doppler_map_fname)
+        strong, weak, _ = ground_truth_peaks(stack)
+        bit_equal = bool(np.array_equal(stack, zarr_stack))
+        max_diff = float(np.max(np.abs(stack - zarr_stack)))
+
+        with hdf5_min.File(hcfg.range_doppler_map_fname, "a") as f:
+            f["/xambg"][:, :, 4:] = 0
+            f["/xambg"].attrs["frames_done"] = 4
+        zero_counts()
+        t0 = time.perf_counter()
+        n_resume = process_main(["--config", h5_yaml, "--resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_launches = read_counts()
+        resumed, resumed_done, _ = read_h5(hcfg.range_doppler_map_fname)
+        resume_equal = bool(np.array_equal(resumed, stack))
+
+        t0 = time.perf_counter()
+        for pid, (s, n) in enumerate(((0, BATCH), (BATCH, FRAMES - BATCH))):
+            w = MapWriter(hcfg, n, f"{hcfg.output_fname}.part{pid}.hdf5")
+            w.write(np.moveaxis(stack[:, :, s:s + n], 2, 0), 0)
+            w.close()
+        parts_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        merged_n = concat.main(["--config", h5_yaml])
+        concat_s = time.perf_counter() - t0
+        merged, merged_done, _ = read_h5(hcfg.range_doppler_map_fname)
+        concat_equal = bool(np.array_equal(merged, stack))
+
+        read_ms = dict(zarr=[], hdf5=[])
+        for fmt in ("zarr", "hdf5") * H5_READ_TURNS:
+            with AbsMapStack(cfg if fmt == "zarr" else hcfg) as st:
+                for f in range(FRAMES):
+                    t0 = time.perf_counter()
+                    frame = st[:, :, f:f + 1]
+                    read_ms[fmt].append((time.perf_counter() - t0) * 1e3)
+                    if frame.shape != stack.shape[:2] + (1,):
+                        raise AssertionError(f"{fmt} frame {frame.shape}")
+        fixture = h5py_fixture_check()
+        t0 = time.perf_counter()
+        _, h5_tracks = track_multi.track(hcfg)
+        track_s = time.perf_counter() - t0
+    _, zarr_tracks = track_multi.track(cfg)
+    tracks_equal = same_tree(h5_tracks, zarr_tracks)
+    med = {k: float(np.median(v)) for k, v in read_ms.items()}
+    out = dict(
+        phase="hdf5", h5py_installed=h5py_installed, backend="hdf5_min",
+        frames=FRAMES, batches=batches, capture_write_s=write_s,
+        capture_bytes=os.path.getsize(p["input_file"]),
+        wall_frames_per_s=wall,
+        wall_frames_per_s_median={k: float(np.median(v))
+                                  for k, v in wall.items()},
+        launches=launches, strong_peak=strong, weak_peak=weak,
+        frames_done=done, chunks=list(chunks),
+        bit_equal_to_zarr_stack=bit_equal, max_abs_diff_to_zarr=max_diff,
+        resume=dict(frames=n_resume, s=resume_s, launches=resume_launches,
+                    frames_done=resumed_done, bit_equal=resume_equal),
+        concat=dict(frames=merged_n, parts_write_s=parts_s, s=concat_s,
+                    frames_done=merged_done, bit_equal=concat_equal),
+        read_ms_per_frame_median=med,
+        read_ms_per_frame=read_ms, fixture=fixture,
+        track_multi=dict(s=track_s, tracks_equal_to_zarr=tracks_equal),
+        phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    if launches["mix_regroup_matmul"] < 2 * batches or \
+            launches["nlms_filter_pallas"] or launches["fft_fused"]:
+        raise AssertionError(f"hdf5 cli.process launches {launches}")
+    if (strong, weak) != (STRONG_CELL, WEAK_CELL):
+        raise AssertionError(f"hdf5 ground truth peaks {strong}, {weak}")
+    if not bit_equal or done != FRAMES or \
+            chunks != (cfg.num_doppler_cells, cfg.num_range_cells + 1, 1):
+        raise AssertionError(f"hdf5 stack: bit-equal {bit_equal} (largest "
+                             f"difference {max_diff}), frames_done {done}, "
+                             f"chunks {chunks}")
+    if not (resume_equal and resumed_done == FRAMES == n_resume
+            and resume_launches["mix_regroup_matmul"] > 0):
+        raise AssertionError(f"hdf5 --resume: {out['resume']}")
+    if not (concat_equal and merged_done == FRAMES == merged_n):
+        raise AssertionError(f"hdf5 cli.concat: {out['concat']}")
+    if not tracks_equal:
+        raise AssertionError("cli.track_multi on the HDF5 stack differs "
+                             "from the zarr stack's tracks")
+    return launches
+
+
 def phase_steady(torch, dev, cfg):
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.io.hdf5 import CaptureReader
@@ -3120,6 +3334,7 @@ def main() -> int:
     phase_nlms_chain_parity(torch, dev)
     try:
         params, cfg, launches = phase_main_path(torch)
+        hdf5 = phase_hdf5(torch, params, cfg)
         row_nlms["launches"] = phase_nlms_main_path(torch, params)
         phase_nlms_fm_parity(torch, dev, params)
         phase_ls_fused(torch, dev, cfg)
@@ -3142,7 +3357,8 @@ def main() -> int:
     row["launches"] = launches
     # every path's own count (set to 0 just before it): the maps that the
     # postprocess phase reads come from the LS cli.process run
-    later = dict(postprocess=post, **wide, process_alt=process_alt,
+    later = dict(process_hdf5=hdf5, postprocess=post, **wide,
+                 process_alt=process_alt,
                  stream_alt=stream_alt, **parallel, **last)
     row["launches_by_path"] = dict(process_ls=launches,
                                    stream_ls_fused=stream["ls_multiple"]

@@ -50,7 +50,8 @@ def load(args) -> RadarConfig:
 
 def fail_on_missing_capture(fn):
     """Wrap a CLI main so a missing capture file exits with a one-line
-    error instead of an h5py traceback."""
+    error instead of a traceback (h5py and io/hdf5_min.py both raise
+    FileNotFoundError for a missing HDF5 capture)."""
     @functools.wraps(fn)
     def wrapped(argv=None):
         try:

@@ -11,10 +11,11 @@ separate per-channel datasets of interleaved IQ (float32 or int16; int16
 ships raw and converts on the device), and the single 4-way interleaved
 dataset [refI, refQ, srvI, srvQ, ...], de-multiplexed on the host.
 
-The capture is an HDF5 file (read with h5py) or, where h5py is not
-installed, a zarr v2 directory store holding the same dataset paths as
+The capture is an HDF5 file, read through io/writers.hdf5_backend() (h5py
+when installed, else io/hdf5_min.py, which serves a contiguous dataset by
+os.pread), or a zarr v2 directory store holding the same dataset paths as
 arrays (``io/synthetic.write_synth_capture`` writes either, by the path's
-``.zarr`` suffix). h5py is imported only when an HDF5 file is opened.
+``.zarr`` suffix).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.io.native import demux2, i16_to_f32
-from passiveradar_torch.io.writers import zarr_backend
+from passiveradar_torch.io.writers import hdf5_backend, zarr_backend
 from passiveradar_torch.ops.xcorr import find_channel_offset
 
 
@@ -54,8 +55,7 @@ class CaptureReader:
                 return zarr.open(os.path.join(self.path, key.strip("/")),
                                  mode="r")
         else:
-            import h5py
-            self._file = h5py.File(self.path, "r")
+            self._file = hdf5_backend().File(self.path, "r")
             dataset = self._file.__getitem__
         self.interleaved = bool(cfg.interleaved_input_channels)
         if self.interleaved:

@@ -25,7 +25,7 @@ import torch
 
 from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
-from passiveradar_torch.io.writers import zarr_backend
+from passiveradar_torch.io.writers import hdf5_backend, zarr_backend
 from passiveradar_torch.ops.mixer import frequency_shift
 
 
@@ -232,8 +232,7 @@ def _write_capture(path: str, cfg: RadarConfig, ref: np.ndarray,
                           dtype=arr.dtype, compressor=None)
             z[:] = arr
         return
-    import h5py
-    with h5py.File(path, "w") as f:
+    with hdf5_backend().File(path, "w") as f:
         for key, arr in datasets.items():
             f.create_dataset(key, data=arr)
 
@@ -243,9 +242,9 @@ def write_synth_capture(path: str, cfg: RadarConfig, n_frames: int,
                         dtype=np.float32, **kwargs) -> None:
     """Write a synthetic capture in the reference's layout.
 
-    An HDF5 file (h5py), or a zarr v2 directory store with the same dataset
-    paths when ``path`` ends in ``.zarr`` (uncompressed, 4 Mi-element
-    chunks). interleaved=True writes the single-dataset 4-way interleaved
+    An HDF5 file (through io/writers.hdf5_backend()), or a zarr v2
+    directory store with the same dataset paths when ``path`` ends in
+    ``.zarr`` (uncompressed, 4 Mi-element chunks). interleaved=True writes the single-dataset 4-way interleaved
     layout ([refI, refQ, srvI, srvQ, ...]); default follows
     cfg.interleaved_input_channels. dtype int16 emulates SDR captures.
     """

@@ -3,9 +3,9 @@ the JAX package's io/writers.py).
 
 The reference's file contract (main.py:200-227): a frame stack of shape
 (num_doppler_cells, num_range_cells+1, num_frames) complex64 under '/xambg'
-in HDF5 (h5py, imported only for HDF5 output), or a zarr v2 array (the real
-``zarr`` package when installed, else io/zarr_min.py, same on-disk format),
-plus an .npz with frame_timestamps /
+in HDF5 (h5py when installed, else io/hdf5_min.py, same on-disk format),
+or a zarr v2 array (the real ``zarr`` package when installed, else
+io/zarr_min.py, same on-disk format), plus an .npz with frame_timestamps /
 range_bins / doppler_bins axes. The doppler_bins axis has
 num_doppler_cells entries centred on zero, except under
 cfg.strict_frame_parity, which replicates the reference's doubled axis
@@ -30,6 +30,17 @@ def zarr_backend():
         return zarr
     from passiveradar_torch.io import zarr_min
     return zarr_min
+
+
+def hdf5_backend():
+    """The real h5py package when installed, else the vendored subset
+    (io/hdf5_min.py), which reads and writes the files h5py writes by
+    default."""
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+        return h5py
+    from passiveradar_torch.io import hdf5_min
+    return hdf5_min
 
 
 # frames copied a step when merging part stacks (concat_parts)
@@ -76,13 +87,13 @@ class MapWriter:
                 self._z.attrs["frames_done"] = 0
             self._h5 = None
         else:
-            import h5py
+            h5 = hdf5_backend()
             if resume and os.path.exists(self.path):
-                self._h5 = h5py.File(self.path, "a")
+                self._h5 = h5.File(self.path, "a")
                 self._d = self._h5["/xambg"]
                 self.frames_done = int(self._d.attrs.get("frames_done", 0))
             else:
-                self._h5 = h5py.File(self.path, "w")
+                self._h5 = h5.File(self.path, "w")
                 self._d = self._h5.create_dataset(
                     "/xambg", shape=shape, dtype=np.complex64, chunks=chunk)
                 self._d.attrs["frames_done"] = 0
@@ -113,8 +124,8 @@ def concat_parts(part_paths, out_path: str, ftype: str = "hdf5") -> int:
     multi-process output contract, parallel/distributed.py). Frames are
     copied in CONCAT_SLAB_FRAMES-frame slabs, so host memory stays O(slab)
     however large a part is. Sets ``frames_done`` to the total and returns
-    it. Zarr stores go through zarr_backend(); h5py is imported for HDF5
-    only.
+    it. Zarr stores go through zarr_backend(), HDF5 files through
+    hdf5_backend().
     """
     def copy_slabs(dst, src, at: int) -> int:
         n = src.shape[2]
@@ -135,12 +146,12 @@ def concat_parts(part_paths, out_path: str, ftype: str = "hdf5") -> int:
             at += copy_slabs(dst, s, at)
         dst.attrs["frames_done"] = total
         return total
-    import h5py
-    with h5py.File(out_path, "w") as out:
+    h5 = hdf5_backend()
+    with h5.File(out_path, "w") as out:
         dst = None
         at = 0
         for p in part_paths:
-            with h5py.File(p, "r") as f:
+            with h5.File(p, "r") as f:
                 src = f["/xambg"]
                 n = src.shape[2]
                 if dst is None:
@@ -157,13 +168,12 @@ def concat_parts(part_paths, out_path: str, ftype: str = "hdf5") -> int:
 
 
 def _open_maps(cfg: RadarConfig, path: str | None):
-    """(dataset, h5py file or None) of a map stack: a zarr array through
-    zarr_backend(), or '/xambg' of an HDF5 file (h5py imported here)."""
+    """(dataset, HDF5 file or None) of a map stack: a zarr array through
+    zarr_backend(), or '/xambg' of an HDF5 file through hdf5_backend()."""
     path = path or cfg.range_doppler_map_fname
     if cfg.range_doppler_map_ftype == "zarr":
         return zarr_backend().open(path, mode="r"), None
-    import h5py
-    f = h5py.File(path, "r")
+    f = hdf5_backend().File(path, "r")
     return f["/xambg"], f
 
 

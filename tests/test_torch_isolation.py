@@ -27,9 +27,11 @@ def test_import_pulls_in_no_jax():
     """A fresh interpreter imports every module of the port, with h5py and
     matplotlib blocked; neither jax nor passiveradar_tpu may end up in
     sys.modules."""
-    # the CLIs that draw import matplotlib only to draw
+    # the CLIs that draw import matplotlib only to draw; the HDF5 subset
+    # stands in for h5py
     assert {"passiveradar_torch.cli.preview",
-            "passiveradar_torch.cli.plot"} <= set(_modules())
+            "passiveradar_torch.cli.plot",
+            "passiveradar_torch.io.hdf5_min"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['h5py'] = None   # the card's host may lack h5py\n"
@@ -60,6 +62,21 @@ def test_source_names_no_jax():
         text = path.read_text()
         assert "passiveradar_tpu" not in text, path
         assert not imp.search(text), path
+
+
+def test_hdf5_subset_imports_numpy_and_the_standard_library_only():
+    """io/hdf5_min.py, the HDF5 reader and writer for hosts without h5py,
+    imports numpy and standard-library modules, nothing else (no h5py)."""
+    import ast
+    tree = ast.parse((PKG / "io" / "hdf5_min.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "numpy" in names and "h5py" not in names
+    assert names - {"numpy"} <= set(sys.stdlib_module_names), names
 
 
 def test_default_device_raises_without_cuda(tmp_path):
