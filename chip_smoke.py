@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: every csrc/*.cu for sm_90a, csrc/nlms.cu again at the block
+2. build: every csrc/*.cu for sm_90a (the four kernels: the resampler,
+   NLMS, the fused FFT and the tracker step), csrc/nlms.cu again at the block
    length NLMS_OTHER_BLOCK and csrc/mix_regroup.cu again at each setting of
    MR_VARIANTS, one nvcc each, all started at once, from the checkout, with
    ptxas' registers and spills;
@@ -47,12 +48,19 @@ Phases, one JSON line each; any failure exits non-zero:
    under ``PASSIVERADAR_PALLAS_FFT=1`` and with ``nlms_pallas``, in full
    and summary detail, with the launch counts of each run, its push
    latency, and a confirmed track at the strong target; each streamed CAF
-   against ``process_frames`` over the same frames;
+   against ``process_frames`` over the same frames; the LS push in full
+   and summary detail in turns on one processor;
 6. postprocess: the LS maps of step 4 through load_maps, cfar_stack, both
    batch trackers and the display frames on the card, per frame, with a
    confirmed track and the simple tracker's lock at the strong target, the
    card against the CPU, and (where matplotlib imports) ``cli.plot``,
-   ``cli.track_multi`` and ``cli.track_simple`` in a work directory;
+   ``cli.track_multi`` and ``cli.track_simple`` in a work directory; then
+   (``tracker_kernel``) the tracker-step kernel against its plain version
+   on the same card candidates at the FM stream's shape (those maps' CFAR
+   stack) and the wideband stream's (8 channels of a drifting-target
+   scene), over 16 frames and for one frame from live tables, the whole
+   step under ``torch.cuda.set_sync_debug_mode("error")``, its launches
+   (at most TRACKER_MAX_LAUNCHES for 8 channels), times and bound;
 7. wideband: bench_wideband.py's 8-channel DVB-T-class band, WIDE_CPIS
    CPIs with one echo, through ``cli.wideband --integrate`` (the echo's
    cell in every stack, CPI/s) and ``cli.stream`` on cuFFT and on the fused
@@ -246,6 +254,14 @@ NATIVE_N = 20_000_000    # samples of the native helpers' checks
 SWEEP_WIDTHS = (8, 16, 32, 64)
 SWEEP_RUNS = 5
 SWEEP_TOL = 1e-3
+# the tracker-step kernel against its plain version (tests/test_torch_
+# detect.py's tolerances, (atol, rtol) a leaf): float32 4×4 products in
+# another order; the slots of a stream's table; the step's launches for
+# the 8 wideband channels together (profiler events, memsets included)
+TRACKER_TOL = dict(estimate=(1e-4, 1e-6), measurement=(1e-4, 1e-6),
+                   x=(1e-4, 1e-5), P=(1e-4, 1e-5), S=(1e-4, 1e-5))
+TRACKER_SLOTS = 10
+TRACKER_MAX_LAUNCHES = 64
 
 
 def emit(obj):
@@ -1017,6 +1033,31 @@ def push_breakdown(torch, sp, ref, srv, method):
               tracker_kernel_launches=launches))
 
 
+def summary_ab(torch, dev, cfg, ref, srv, route):
+    """The push in full and in summary detail in turns (full, summary,
+    summary, full, ...) on one processor over the device-resident frames:
+    each push's host milliseconds (the card synchronised on both sides)
+    and each detail's median; the first push, which returns nothing, is
+    left out."""
+    from passiveradar_torch.streaming import StreamingProcessor
+
+    sp = StreamingProcessor(cfg, device=dev)
+    turns = ("full", "summary", "summary", "full")
+    ms = dict(full=[], summary=[])
+    with route():
+        sp.push(ref[0], srv[0])
+        for i in range(1, ref.shape[0]):
+            detail = turns[(i - 1) % len(turns)]
+            _, t = synced_ms(torch, lambda: sp.push(ref[i], srv[i],
+                                                    detail=detail))
+            ms[detail].append(t)
+    emit(dict(phase="stream_summary_ab", clutter_method=cfg.clutter_method,
+              turns=list(turns), push_ms=ms,
+              push_ms_median={d: float(np.median(v)) for d, v in ms.items()},
+              summary_over_full=float(np.median(ms["summary"])
+                                      / np.median(ms["full"]))))
+
+
 def phase_stream(torch, dev, params):
     """cli.stream on the FM capture: LS under the fused-FFT opt-in and
     nlms_pallas, full and summary detail, with each run's launch counts
@@ -1029,15 +1070,10 @@ def phase_stream(torch, dev, params):
     from passiveradar_torch.cli.stream import main as stream_main
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io.hdf5 import CaptureReader
-    from passiveradar_torch.ops import fft_kernel as fk
-    from passiveradar_torch.ops import nlms_kernel as nk
-    from passiveradar_torch.ops import resample_kernel as rk
     from passiveradar_torch.pipeline import frame_phases, process_frames
     from passiveradar_torch.streaming import StreamingProcessor
 
-    counters = dict(mix_regroup_matmul=rk.mix_regroup_matmul,
-                    nlms_filter_pallas=nk.nlms_filter_batch,
-                    fft_fused=fk.fft_fused)
+    counters = kernel_counters()
     runs = {}
     for method in ("ls_multiple", "nlms_pallas"):
         p = dict(params, clutter_method=method)
@@ -1074,9 +1110,12 @@ def phase_stream(torch, dev, params):
                       confirmed=[[int(i), float(est[i, 0]), float(est[i, 1])]
                                  for i in np.where(status == 2)[0]],
                       confirmed_at_strong_target=hits))
+            # the tracker: a step a frame and one at the processor's
+            # construction (its warm-up)
             want = dict(mix_regroup_matmul=2 * FRAMES,
                         nlms_filter_pallas=0 if fused else FRAMES,
-                        fft_fused=2 * FRAMES if fused else 0)
+                        fft_fused=2 * FRAMES if fused else 0,
+                        multitarget_step=FRAMES + 1)
             if res["frames"] != FRAMES or launches != want:
                 raise AssertionError(f"stream {method}/{detail}: frames "
                                      f"{res['frames']}, launches {launches}")
@@ -1104,6 +1143,8 @@ def phase_stream(torch, dev, params):
                       / np.max(batch[r.frame_index])) for r in streamed]
         with route():
             push_breakdown(torch, sp, rc[0], sc[0], method)
+        if method == "ls_multiple":
+            summary_ab(torch, dev, cfg, rc, sc, route)
         emit(dict(phase="stream_vs_process_frames", clutter_method=method,
                   fused_fft=fused, frames=len(streamed),
                   max_rel_err=max(errs), tol=STREAM_TOL))
@@ -1143,13 +1184,15 @@ def confirmed_near(status, est, point):
 
 
 def kernel_counters():
-    """The three kernels' launch counters by the kernels line's names."""
+    """The four kernels' launch counters by the kernels line's names."""
+    from passiveradar_torch.detect import tracker_kernel as trk
     from passiveradar_torch.ops import fft_kernel as fk
     from passiveradar_torch.ops import nlms_kernel as nk
     from passiveradar_torch.ops import resample_kernel as rk
     return dict(mix_regroup_matmul=rk.mix_regroup_matmul,
                 nlms_filter_pallas=nk.nlms_filter_batch,
-                fft_fused=fk.fft_fused)
+                fft_fused=fk.fft_fused,
+                multitarget_step=trk.multitarget_step_kernel)
 
 
 def zero_counts():
@@ -1169,6 +1212,216 @@ def synced_ms(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def kernel_device_ms(torch, fn, name: str, runs: int = 20) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over ``runs`` calls of fn, from torch.profiler's device events (the
+    host's share of each call left out)."""
+    fn()
+    t = trace(torch, lambda: [fn() for _ in range(runs)])
+    rows = [r for r in t.get("by_name", []) if name in r["name"]]
+    if not rows:
+        raise AssertionError(f"the profiler recorded no {name}: {t}")
+    return sum(r["ms"] for r in rows) / sum(r["launches"] for r in rows)
+
+
+def tracker_scene(channels, frames, nf, nr, seed):
+    """(channels, frames, nf, nr) maps: noise and, in each channel, three
+    point targets drifting in Doppler, the last gone after half the frames
+    (its track coasts and dies), away from the zeroed rows and columns."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((channels, frames, nf, nr)) * 0.2 + 1.0).astype(
+        np.float32)
+    for c in range(channels):
+        for t in range(frames):
+            for j, row in enumerate((0.1, 0.3, 0.75)[:3 if t < frames // 2
+                                                     else 2]):
+                x[c, t, int(row * nf) + 2 * c + t // 4,
+                  nr // 5 + (nr // 5) * j + 5 * c] = 60.0 - 10 * j
+    return x
+
+
+def tracker_tables_agree(tt, got, want) -> dict:
+    """The kernel's history against the plain version's (TRACKER_TOL):
+    the discrete state equal, the float leaves' largest difference."""
+    got, want = tt.to_host(got), tt.to_host(want)
+    discrete = all(np.array_equal(got[k], want[k])
+                   for k in ("status", "lifetime", "history"))
+    consts = all(np.array_equal(got["kalman"][k], want["kalman"][k])
+                 for k in ("F1", "F2", "Q", "H", "R"))
+    errs, within = {}, True
+    for k, (atol, rtol) in TRACKER_TOL.items():
+        g = got[k] if k in got else got["kalman"][k]
+        w = want[k] if k in want else want["kalman"][k]
+        errs[k] = float(np.max(np.abs(g - w)))
+        within &= bool(np.all(np.abs(g - w) <= atol + rtol * np.abs(w)))
+    return dict(discrete_equal=discrete and consts, within_tol=within,
+                max_abs_err=max(errs.values()), max_abs_err_by_leaf=errs,
+                live_slots=int((want["status"] > 0).sum()),
+                confirmed_slots=int((want["status"] == 2).sum()))
+
+
+def phase_tracker_kernel(torch, dev, cfg):
+    """The tracker-step kernel (csrc/tracker.cu) against its plain version
+    on the same card candidates, 10 tracks: at the FM stream's shape (C = 1,
+    K = cfg.candidate_budget) on the main path's 16-frame LS CFAR stack,
+    and at the wideband stream's (C = 8 channels, K = 384) on
+    tracker_scene; each over the 16 frames from free tables (T = 16) and
+    for one frame from the tables that 12 plain frames left (T = 1). Then
+    the whole step (batched get_measurements and one launch) under
+    torch.cuda.set_sync_debug_mode("error") at both shapes, its kernel
+    launches from the profiler (at most TRACKER_MAX_LAUNCHES for the 8
+    channels), and the times: the kernel's device time from the profiler
+    (a step at T = 1; T = 16, and µs a slot over its frames), the kernel
+    call with its host side and the whole step by CUDA events, the plain
+    step by the host clock; the bound; and candidate extraction's peak
+    working memory on long FM stacks (extraction_memory), which must not
+    grow with the stack. Returns the kernels line's row."""
+    from passiveradar_torch.cli.plot import cfar_stack
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+    from passiveradar_torch.detect.measurements import get_measurements
+    from passiveradar_torch.io.writers import load_maps
+    from passiveradar_torch.ops.cfar import cfar_2d
+
+    n = TRACKER_SLOTS
+    fm = torch.from_numpy(np.moveaxis(cfar_stack(load_maps(cfg), device=dev),
+                                      2, 0).copy()).to(dev)[None]
+    wcfg = derive_config(WIDE)
+    scene = torch.from_numpy(tracker_scene(
+        8, FRAMES, wcfg.num_doppler_cells, wcfg.num_range_cells + 1,
+        seed=3)).to(dev)
+    wide = cfar_2d(scene.flatten(0, 1), 18, 4).reshape(scene.shape)
+    shapes = {}
+    for name, c_cfg, frames in (("fm", cfg, fm), ("wideband", wcfg, wide)):
+        extent = torch.tensor((c_cfg.max_doppler_actual,
+                               c_cfg.max_range_actual), device=dev)
+        k = c_cfg.candidate_budget
+        cand, valid = get_measurements(frames, extent, k)
+        c = cand.shape[0]
+        free = tt.init_tracks(n, dev, c)
+        lead = FRAMES - 4
+        live = tt._map(lambda a: a[-1].contiguous(),
+                       tt.multitarget_step_plain(free, cand[:, :lead],
+                                                 valid[:, :lead], n))
+        one = (cand[:, lead:lead + 1].contiguous(),
+               valid[:, lead:lead + 1].contiguous())
+        checks = dict(
+            T16=tracker_tables_agree(
+                tt, trk.multitarget_step_kernel(free, cand, valid, n),
+                tt.multitarget_step_plain(free, cand, valid, n)),
+            T1=tracker_tables_agree(
+                tt, trk.multitarget_step_kernel(live, *one, n),
+                tt.multitarget_step_plain(live, *one, n)))
+        frame = frames[:, lead].contiguous()
+
+        def step(table=live, frame=frame, extent=extent, k=k):
+            return tt.multitarget_step(table, frame, extent, n, k)
+
+        step()                                    # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = trace(torch, step)["kernels"]
+        ms = dict(
+            kernel=kernel_device_ms(
+                torch, lambda: trk.multitarget_step_kernel(live, *one, n),
+                "tracker_kernel"),
+            kernel_T16=kernel_device_ms(
+                torch, lambda: trk.multitarget_step_kernel(free, cand, valid,
+                                                           n),
+                "tracker_kernel"),
+            kernel_call=cuda_ms(torch, lambda: trk.multitarget_step_kernel(
+                live, *one, n), 50),
+            step=cuda_ms(torch, step, 20),
+            plain=float(np.median([synced_ms(
+                torch, lambda: tt.multitarget_step_plain(live, *one, n))[1]
+                for _ in range(3)])))
+        table_bytes = c * n * 110 * 4
+        # the kernel reads each candidate's range and Doppler and its valid
+        # byte (not its strength), and the table in and out
+        nbytes = 2 * table_bytes + c * (2 * k * 4 + k)
+        # a slot's two passes, ~16 float operations a candidate, and its
+        # Kalman algebra, ~400
+        ops = c * n * (16.0 * k + 400.0)
+        bound_ms, bound_by = flops_bound(nbytes, ops)
+        shapes[name] = dict(
+            C=c, T=FRAMES, K=k, n_tracks=n, checks=checks,
+            step_launches=launches, ms=ms,
+            us_per_slot_T16=ms["kernel_T16"] * 1e3 / (FRAMES * n),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / ms["kernel"])
+    memory = extraction_memory(torch, fm[0], cfg)
+    emit(dict(phase="tracker_kernel", tol=TRACKER_TOL,
+              max_launches=TRACKER_MAX_LAUNCHES, sync_debug="error",
+              extraction_memory=memory, **shapes))
+    if memory["chunked"]["8"]["working_bytes"] > \
+            1.05 * memory["chunked"]["2"]["working_bytes"]:
+        raise AssertionError(f"candidate extraction's working memory grows "
+                             f"with the stack: {memory}")
+    for name, r in shapes.items():
+        for label, chk in r["checks"].items():
+            if not (chk["discrete_equal"] and chk["within_tol"]
+                    and chk["live_slots"] > 0):
+                raise AssertionError(f"tracker kernel {name} {label}: {chk}")
+    if shapes["wideband"]["step_launches"] > TRACKER_MAX_LAUNCHES:
+        raise AssertionError(f"tracker step: "
+                             f"{shapes['wideband']['step_launches']} "
+                             f"launches for 8 channels")
+    r = shapes["fm"]
+    return dict(name="multitarget_step", route="cuda",
+                source="passiveradar_torch/csrc/tracker.cu",
+                replaces="passiveradar_tpu/detect/trackers.py:189",
+                launches=None,
+                max_abs_err=max(c["max_abs_err"] for s in shapes.values()
+                                for c in s["checks"].values()),
+                ms=r["ms"]["kernel"], plain_ms=r["ms"]["plain"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None)
+
+
+def extraction_memory(torch, frames, cfg):
+    """Peak device memory of get_measurements on long FM stacks made by
+    repeating ``frames``: stacks of 2 and 8 chunks of
+    measurements.CHUNK_BYTES, and the 2-chunk stack in one pass (the chunk
+    size lifted above it). ``working_bytes`` is the peak above what was
+    allocated before the call, less the outputs: what the extraction needs
+    on top of the stack, which chunks keep from growing with its length."""
+    from passiveradar_torch.detect import measurements as tm
+
+    chunk = tm.CHUNK_BYTES
+    per_frame = frames[0].numel() * 4
+    extent = torch.tensor((cfg.max_doppler_actual, cfg.max_range_actual),
+                          device=frames.device)
+    k = cfg.candidate_budget
+
+    def peak(n_chunks):
+        t = n_chunks * chunk // per_frame
+        stack = frames.repeat(-(-t // len(frames)), 1, 1)[:t].contiguous()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = tm.get_measurements(stack, extent, k)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        out_bytes = sum(o.numel() * o.element_size() for o in out)
+        return dict(frames=t, stack_bytes=t * per_frame, peak_bytes=extra,
+                    working_bytes=extra - out_bytes,
+                    working_over_stack=(extra - out_bytes) / (t * per_frame))
+
+    chunked = {str(n): peak(n) for n in (2, 8)}
+    try:
+        tm.CHUNK_BYTES = 1 << 62
+        one_pass = peak(2)
+    finally:
+        tm.CHUNK_BYTES = chunk
+    return dict(chunk_bytes=chunk, chunked=chunked, one_pass_2=one_pass)
 
 
 def phase_postprocess(torch, dev, cfg):
@@ -1565,7 +1818,8 @@ def phase_wideband(torch, dev):
                   confirmed_at_echo=hits, confirmed_last_frame=last,
                   card_vs_cpu_replay=replay, **split))
         want = dict(mix_regroup_matmul=0, nlms_filter_pallas=0,
-                    fft_fused=2 * WIDE_CPIS if fused else 0)
+                    fft_fused=2 * WIDE_CPIS if fused else 0,
+                    multitarget_step=WIDE_CPIS + 1)
         if res["frames"] != WIDE_CPIS or launches != want or \
                 len(pushes) != WIDE_CPIS:
             raise AssertionError(f"wideband stream (fused {fused}): frames "
@@ -2298,7 +2552,7 @@ def phase_main_path_alt(torch, dev, params):
     if n != FRAMES or not finite:
         raise AssertionError(f"alt cli.process: {n} frames, finite {finite}")
     if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                        fft_fused=0):
+                        fft_fused=0, multitarget_step=0):
         raise AssertionError(f"alt cli.process launches {launches}")
     if strong != STRONG_CELL:
         raise AssertionError(f"alt cli.process strong peak {strong}")
@@ -2381,7 +2635,7 @@ def phase_stream_alt(torch, dev, params):
               wide_tol=WIDE_TOL))
     if res["frames"] != FRAMES or launches != dict(
             mix_regroup_matmul=2 * FRAMES, nlms_filter_pallas=0,
-            fft_fused=0):
+            fft_fused=0, multitarget_step=FRAMES + 1):
         raise AssertionError(f"alt stream: frames {res['frames']}, "
                              f"launches {launches}")
     if not hits:
@@ -2526,7 +2780,7 @@ def phase_sharded(torch, dev, params):
             want_b2 = n if method == "nlms_pallas" else 0
             if rel > SHARD_TOL or not same or exchanges != 4 or counts != dict(
                     mix_regroup_matmul=2 * n, nlms_filter_pallas=want_b2,
-                    fft_fused=0):
+                    fft_fused=0, multitarget_step=0):
                 raise AssertionError(
                     f"sharded {method} on {label}: rel {rel}, argmax "
                     f"equal {same}, exchanges {exchanges}, launches "
@@ -2581,7 +2835,7 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
             launches = counts
         if n != FRAMES or rel > SHARD_TOL or not same or counts != dict(
                 mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                fft_fused=0):
+                fft_fused=0, multitarget_step=0):
             emit(dict(phase="dispatch_groups", runs=runs))
             raise AssertionError(f"--dispatch-groups {g}: {n} frames, max "
                                  f"difference {diff}, launches {counts}")
@@ -2613,7 +2867,8 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
                   groups=2, frames=f, max_abs_diff_vs_process_frames=group_diff,
                   launches=group_counts)))
     if group_diff != 0 or group_counts != dict(
-            mix_regroup_matmul=4, nlms_filter_pallas=0, fft_fused=0):
+            mix_regroup_matmul=4, nlms_filter_pallas=0, fft_fused=0,
+            multitarget_step=0):
         raise AssertionError(f"process_frames_groups: difference "
                              f"{group_diff}, launches {group_counts}")
     return launches
@@ -2664,12 +2919,14 @@ def phase_profile(torch, params):
 CHILD = """
 import json, sys
 from passiveradar_torch.cli.process import main
+from passiveradar_torch.detect import tracker_kernel
 from passiveradar_torch.ops import fft_kernel, nlms_kernel, resample_kernel
 main(sys.argv[1:])
 print(json.dumps(dict(
     mix_regroup_matmul=resample_kernel.mix_regroup_matmul.launches,
     nlms_filter_pallas=nlms_kernel.nlms_filter_batch.launches,
-    fft_fused=fft_kernel.fft_fused.launches)))
+    fft_fused=fft_kernel.fft_fused.launches,
+    multitarget_step=tracker_kernel.multitarget_step_kernel.launches)))
 """
 
 
@@ -2822,7 +3079,7 @@ def phase_multiprocess(torch, params, want_stack):
                              f"peaks {strong}, {weak}")
     batches = sum(-(-n // BATCH) for n in parts)
     if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                        fft_fused=0):
+                        fft_fused=0, multitarget_step=0):
         raise AssertionError(f"multiprocess launches {launches}")
     return launches
 
@@ -3195,7 +3452,8 @@ def phase_batch_sweep(torch, dev, params):
             want_b2 = 1 if method == "nlms_pallas" else 0
             ok = (rel <= SWEEP_TOL and same and counts[f] == dict(
                 mix_regroup_matmul=2, nlms_filter_pallas=want_b2,
-                fft_fused=0) and bool(torch.isfinite(maps).all()))
+                fft_fused=0, multitarget_step=0)
+                and bool(torch.isfinite(maps).all()))
             rows.append(dict(clutter_method=method, frames=f,
                              rel_err_vs_batch8=rel, argmax_equal=same,
                              launches=counts[f], peak_memory_bytes=peaks[f]))
@@ -3341,6 +3599,7 @@ def main() -> int:
         stream = phase_stream(torch, dev, params)
         row_fft["launches"] = stream["ls_multiple"]["fft_fused"]
         post = phase_postprocess(torch, dev, cfg)
+        row_trk = phase_tracker_kernel(torch, dev, cfg)
         wide = phase_wideband(torch, dev)
         phase_steady(torch, dev, cfg)
         phase_ls_route_ab(torch, dev, cfg)
@@ -3369,11 +3628,15 @@ def main() -> int:
         process_nlms_pallas=row_nlms["launches"],
         stream_nlms_pallas=stream["nlms_pallas"]["nlms_filter_pallas"])
     row_fft["launches_by_path"] = dict(stream_ls_fused=row_fft["launches"])
-    for r in (row, row_nlms, row_fft):
+    row_trk["launches"] = stream["ls_multiple"]["multitarget_step"]
+    row_trk["launches_by_path"] = dict(
+        stream_ls_fused=row_trk["launches"],
+        stream_nlms_pallas=stream["nlms_pallas"]["multitarget_step"])
+    for r in (row, row_nlms, row_fft, row_trk):
         r["launches_by_path"].update(
             {path: counts[r["name"]] for path, counts in later.items()})
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
-    emit({"kernels": [row, row_nlms, row_fft]})
+    emit({"kernels": [row, row_nlms, row_fft, row_trk]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,13 @@ The reference trackers (target_detection.py:455-526, 626-681) are Python
 frame loops over structured numpy records with data-dependent control flow.
 Here, as in the JAX package, the association logic is masks and
 argmax/argmin selections over a fixed-size candidate table, and the track
-table is a dict of (n_tracks, …) tensors on the maps' device. The JAX
-``scan``s become Python loops: over the track slots in priority order (the
-only host read of a step is that order) and over the frames of a stack, the
-frame loop of both batch trackers running on the device.
+table is a dict of (n_tracks, …) tensors on the maps' device, or of
+(C, n_tracks, …) tensors for C channels advanced together. On the card the
+multitarget step (its slot loop a JAX ``scan``) is one launch of the CUDA
+kernel of ``detect/tracker_kernel.py`` for every channel and frame, without
+a host read; on the CPU it is the plain version, a Python loop over the
+slots in priority order. The simple tracker's frame ``scan`` is a Python
+loop on the device.
 
 Documented behavioural notes (quirks preserved or deliberately diverged,
 as in the JAX package):
@@ -39,8 +42,8 @@ from passiveradar_torch.detect.kalman import (
     kalman_extrapolate,
 )
 from passiveradar_torch.detect.measurements import get_measurements
-
-N_HISTORY = 20
+from passiveradar_torch.detect.tracker_kernel import N_HISTORY, \
+    multitarget_step_kernel
 
 
 def _select(pred: torch.Tensor, a, b):
@@ -83,11 +86,19 @@ def make_track(measurement=None, device=None):
     )
 
 
-def _stack(tracks):
-    """List of track records → one table with a leading slot axis."""
+def _stack(tracks, dim: int = 0):
+    """List of track records (or tables) → one table with a new axis at
+    ``dim``: the slot axis, or a channel or frame axis."""
     first = tracks[0]
-    return {k: _stack([t[k] for t in tracks]) if isinstance(first[k], dict)
-            else torch.stack([t[k] for t in tracks]) for k in first}
+    return {k: _stack([t[k] for t in tracks], dim)
+            if isinstance(first[k], dict)
+            else torch.stack([t[k] for t in tracks], dim) for k in first}
+
+
+def _map(fn, table):
+    """fn applied to every leaf of a (nested) dict of tensors."""
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in table.items()}
 
 
 def _slot(table, i: int):
@@ -115,9 +126,13 @@ def to_host(table) -> dict:
             for k, v in table.items()}
 
 
-def init_tracks(n_tracks: int, device=None):
-    """A table of ``n_tracks`` free tracks on ``device``."""
-    return _stack([make_track(None, device) for _ in range(n_tracks)])
+def init_tracks(n_tracks: int, device=None, channels: int | None = None):
+    """A table of ``n_tracks`` free tracks on ``device``; with ``channels``
+    one such table a channel, leaves (channels, n_tracks, …)."""
+    table = _stack([make_track(None, device) for _ in range(n_tracks)])
+    if channels is None:
+        return table
+    return _stack([table] * channels)
 
 
 # --------------------------------------------------------------------------
@@ -221,10 +236,11 @@ def _track_transition(track, meas: torch.Tensor, found: torch.Tensor):
 # frame step
 # --------------------------------------------------------------------------
 
-def multitarget_step(tracks, frame, frame_extent, n_tracks: int, k_max: int):
-    """One tracker update from one CFAR frame (the streaming entry point).
-    Returns a new table; ``tracks`` is left as it was."""
-    cand, valid = get_measurements(frame, frame_extent, k_max)
+def _slot_loop(tracks, cand: torch.Tensor, valid: torch.Tensor,
+               n_tracks: int):
+    """One frame of one channel's (n_tracks, …) table: the slots in
+    priority order, each associated from the shared pool and advanced.
+    Returns a new table."""
     status = tracks["status"]
     # processing priority: confirmed → preliminary → free, stable by
     # index within each class (reference target_detection.py:494-521)
@@ -238,6 +254,41 @@ def multitarget_step(tracks, frame, frame_extent, n_tracks: int, k_max: int):
         meas, found, avail = _associate(tr, cand, avail)
         _put(tracks, i, _track_transition(tr, meas, found))
     return tracks
+
+
+def multitarget_step_plain(table, cand: torch.Tensor, valid: torch.Tensor,
+                           n_tracks: int):
+    """The plain version of the tracker kernel (``tracker_kernel``'s
+    contract): a (C, n_tracks, …) table, (C, T, 3, K) candidates and (C, T,
+    K) masks → the (T, C, n_tracks, …) tables after each frame, a channel
+    at a time, a frame at a time, each frame a loop over the slots."""
+    channels = []
+    for c in range(cand.shape[0]):
+        tracks = _slot(table, c)
+        frames = []
+        for t in range(cand.shape[1]):
+            tracks = _slot_loop(tracks, cand[c, t], valid[c, t], n_tracks)
+            frames.append(tracks)
+        channels.append(_stack(frames))
+    return _stack(channels, dim=1)
+
+
+def multitarget_step(tracks, frame, frame_extent, n_tracks: int, k_max: int):
+    """One tracker update from one CFAR frame (the streaming entry point).
+
+    frame (nf, nr) with a table of (n_tracks, …) leaves, or (C, nf, nr)
+    with one of (C, n_tracks, …) leaves: each channel's table advanced by
+    its own frame. On the card one batched get_measurements and one kernel
+    launch for every channel, with no host read; on the CPU the plain
+    version. Returns a new table; ``tracks`` is left as it was."""
+    cand, valid = get_measurements(frame, frame_extent, k_max)
+    single = cand.dim() == 2
+    if single:
+        cand, valid = cand[None], valid[None]
+        tracks = _map(lambda a: a[None], tracks)
+    hist = multitarget_step_kernel(tracks, cand[:, None], valid[:, None],
+                                   n_tracks)
+    return _map(lambda a: a[0, 0] if single else a[0], hist)
 
 
 # --------------------------------------------------------------------------
@@ -286,7 +337,8 @@ def multitarget_tracker(data, frame_extent, n_tracks: int = 10,
     (num_frames, num_doppler, num_range) (frames_last=False); the default
     guesses from the shapes (see _orient_stack). frame_extent:
     (max_doppler_hz, max_range_km). Runs on ``device`` (default: the CUDA
-    card), one multitarget_step a frame.
+    card): every frame's candidates in one batched call, then the whole
+    stack in one tracker-kernel launch (the plain version on the CPU).
 
     Returns a dict of tensors with leading axes (num_frames, n_tracks):
     status, lifetime, measurement, estimate, history, kalman.*.
@@ -294,13 +346,12 @@ def multitarget_tracker(data, frame_extent, n_tracks: int = 10,
     frames = _orient_stack(data, frames_last, device)
     extent = torch.as_tensor(frame_extent, dtype=torch.float32,
                              device=frames.device)
-    tracks = init_tracks(int(n_tracks), frames.device)
-    history = []
-    for frame in frames:
-        tracks = multitarget_step(tracks, frame, extent, int(n_tracks),
-                                  int(k_max))
-        history.append(tracks)
-    return _stack(history)
+    n_tracks = int(n_tracks)
+    cand, valid = get_measurements(frames, extent, int(k_max))
+    hist = multitarget_step_kernel(
+        init_tracks(n_tracks, frames.device, channels=1), cand[None],
+        valid[None], n_tracks)
+    return _map(lambda a: a[:, 0], hist)
 
 
 # --------------------------------------------------------------------------

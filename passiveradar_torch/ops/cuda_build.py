@@ -22,7 +22,10 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mix_regroup", "nlms", "fft_fused")
+SOURCES = ("mix_regroup", "nlms", "fft_fused", "tracker")
+# nvcc flags of one source beyond the common ones: the tracker step's gates
+# must round as the plain version's separate products and sums do
+FLAGS = {"tracker": ("-fmad=false",)}
 
 
 def source_path(name: str) -> str:
@@ -75,7 +78,8 @@ def build(names=SOURCES, force: bool = False, variants=()) -> dict:
         os.close(fd)
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, source_path(name)]
+               "-Xptxas", "-v", *FLAGS.get(name, ()), "-o", tmp,
+               source_path(name)]
         cmd[1:1] = [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)

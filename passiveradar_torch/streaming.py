@@ -35,7 +35,8 @@ DETAILS = ("full", "summary")
 
 
 def _track_summary(tracks) -> torch.Tensor:
-    """Pack the per-track scalars into one (n_tracks, 6) float32 tensor.
+    """Pack the per-track scalars into one (…, n_tracks, 6) float32 tensor
+    (a leading channel axis rides along).
 
     Columns: status, lifetime, estimate (range, doppler), last measurement
     (range, doppler). One small device-to-host copy replaces the full
@@ -45,18 +46,18 @@ def _track_summary(tracks) -> torch.Tensor:
     return torch.stack([
         tracks["status"].to(torch.float32),
         tracks["lifetime"].to(torch.float32),
-        tracks["estimate"][:, 0], tracks["estimate"][:, 1],
-        tracks["measurement"][:, 0], tracks["measurement"][:, 1],
-    ], dim=1)
+        tracks["estimate"][..., 0], tracks["estimate"][..., 1],
+        tracks["measurement"][..., 0], tracks["measurement"][..., 1],
+    ], dim=-1)
 
 
 def _fetch_summary(tracks) -> dict:
     a = _track_summary(tracks).cpu().numpy()
     return {
-        "status": a[:, 0].astype(np.int32),
-        "lifetime": a[:, 1].astype(np.int32),
-        "estimate": a[:, 2:4],
-        "measurement": a[:, 4:6],
+        "status": a[..., 0].astype(np.int32),
+        "lifetime": a[..., 1].astype(np.int32),
+        "estimate": a[..., 2:4],
+        "measurement": a[..., 4:6],
     }
 
 
@@ -97,11 +98,24 @@ class StreamingProcessor:
         self._extent = torch.tensor(
             (cfg.max_doppler_actual, cfg.max_range_actual),
             dtype=torch.float32, device=self.dev)
+        if self.dev.type == "cuda":
+            self._warm()
         self._hist: list = []    # [(index, ref_if, srv_clean)] last frame
         self._index = 0
         win = resolve_window(cfg.caf_window, cfg.caf_input_samples)
         self._window = None if win is None else \
             torch.from_numpy(win).to(self.dev)
+
+    def _warm(self) -> None:
+        """One CFAR pass and one tracker step on a zero frame and a scratch
+        table, kept nowhere: the first use of the tracker kernel's library,
+        cuDNN and top-k is paid when the processor is made on the card, not
+        by its first push."""
+        frame = torch.zeros((self.cfg.num_doppler_cells,
+                             self.cfg.num_range_cells + 1), device=self.dev)
+        multitarget_step(init_tracks(self.n_tracks, self.dev),
+                         cfar_2d(frame, *self.cfar_kernel), self._extent,
+                         self.n_tracks, self.cfg.candidate_budget)
 
     def _clean(self, raw_ref, raw_srv):
         cfg = self.cfg

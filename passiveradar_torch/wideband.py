@@ -31,7 +31,7 @@ import torch
 
 from passiveradar_torch._device import on_device, resolve_device
 from passiveradar_torch.config import RadarConfig
-from passiveradar_torch.detect.trackers import init_tracks, \
+from passiveradar_torch.detect.trackers import _slot, init_tracks, \
     multitarget_step, to_host
 from passiveradar_torch.ops.caf import fast_xambg, resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
@@ -290,9 +290,9 @@ class WidebandStreamingProcessor:
     Each push channelizes the CPI, runs per-channel clutter + CAF + CFAR as
     one batch on ``device`` (default: the CUDA card), then advances an
     independent multitarget tracker per selected channel (each illuminator
-    has its own bistatic geometry). Unlike the narrowband
-    StreamingProcessor there is no one-frame latency: wideband CPIs are
-    non-overlapping, so results return immediately.
+    has its own bistatic geometry), all of them in one step. Unlike the
+    narrowband StreamingProcessor there is no one-frame latency: wideband
+    CPIs are non-overlapping, so results return immediately.
     """
 
     def __init__(self, cfg: RadarConfig, n_tracks: int = 10,
@@ -309,12 +309,27 @@ class WidebandStreamingProcessor:
         self.cfar_kernel = cfar_kernel
         self.detail = detail
         self._last_maps = None
-        self._tracks = {k: init_tracks(n_tracks, self.dev)
-                        for k in cfg.wideband_channel_select}
+        # every selected channel's table, leaves (channels, n_tracks, …)
+        channels = len(cfg.wideband_channel_select)
+        self._tracks = init_tracks(n_tracks, self.dev, channels)
         self._extent = torch.tensor(
             (cfg.max_doppler_actual, cfg.max_range_actual),
             dtype=torch.float32, device=self.dev)
+        if self.dev.type == "cuda":
+            self._warm()
         self._index = 0
+
+    def _warm(self) -> None:
+        """One CFAR pass and one tracker step for every selected channel on
+        zero frames and a scratch table, kept nowhere: the first use of the
+        tracker kernel's library, cuDNN and top-k is paid when the
+        processor is made on the card, not by its first push."""
+        channels = len(self.cfg.wideband_channel_select)
+        frames = torch.zeros((channels, self.cfg.num_doppler_cells,
+                              self.cfg.num_range_cells + 1), device=self.dev)
+        multitarget_step(init_tracks(self.n_tracks, self.dev, channels),
+                         cfar_2d(frames, *self.cfar_kernel), self._extent,
+                         self.n_tracks, self.cfg.candidate_budget)
 
     def maps(self, raw_ref, raw_srv):
         """One wideband CPI → per-channel (caf, cfar) stacks on the device,
@@ -325,11 +340,11 @@ class WidebandStreamingProcessor:
         return maps, cfar_2d(maps.abs(), *self.cfar_kernel)
 
     def track(self, cf: torch.Tensor) -> None:
-        """Advance every selected channel's tracker by its CFAR frame."""
-        for i, k in enumerate(self.cfg.wideband_channel_select):
-            self._tracks[k] = multitarget_step(
-                self._tracks[k], cf[i], self._extent, self.n_tracks,
-                self.cfg.candidate_budget)
+        """Advance every selected channel's tracker by its CFAR frame, all
+        channels in one step."""
+        self._tracks = multitarget_step(self._tracks, cf, self._extent,
+                                        self.n_tracks,
+                                        self.cfg.candidate_budget)
 
     def push(self, raw_ref, raw_srv,
              detail: Optional[str] = None) -> dict:
@@ -347,18 +362,24 @@ class WidebandStreamingProcessor:
         maps, cf = self.maps(raw_ref, raw_srv)
         self._last_maps = (maps, cf)
         self.track(cf)
+        # every channel's summary (one copy) or table at once, then each
+        # channel's slice of it
+        if detail == "summary":
+            summary = _fetch_summary(self._tracks)
+        else:
+            tables = to_host(self._tracks)
         results = {}
         for i, k in enumerate(self.cfg.wideband_channel_select):
             if detail == "summary":
                 results[k] = StreamResult(
                     frame_index=self._index, caf=None, cfar=None,
-                    tracks=None, summary=_fetch_summary(self._tracks[k]))
+                    tracks=None, summary=_slot(summary, i))
             else:
                 results[k] = StreamResult(
                     frame_index=self._index,
                     caf=to_host_complex(maps[i]),
                     cfar=cf[i].cpu().numpy(),
-                    tracks=to_host(self._tracks[k]))
+                    tracks=_slot(tables, i))
         self._index += 1
         return results
 

@@ -759,3 +759,93 @@ def test_synth_capture_device_on_the_card(cuda):
     assert torch.equal(torch.view_as_real(runs[0][1]).reshape(srv.shape), srv)
     assert abs(runs[0][0].abs().mean().item() - 1) < 1e-2
     assert abs((runs[0][1].abs() ** 2).mean().item() / 0.26 - 1) < 0.05
+
+
+# ------------------------------------------------- the tracker step kernel
+
+def _tracker_scene(seed, channels, frames, nf=128, nr=201):
+    """(channels, frames, nf, nr) maps at the wideband stream's geometry:
+    noise and, in each channel, three point targets drifting in Doppler,
+    the last of them gone after half the frames (its track coasts)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((channels, frames, nf, nr)) * 0.2 + 1.0).astype(
+        np.float32)
+    for c in range(channels):
+        for t in range(frames):
+            for j in range(3 if t < frames // 2 else 2):
+                x[c, t, 20 + 30 * j + 2 * c + t // 4, 40 + 45 * j + 5 * c] = \
+                    60.0 - 10 * j
+    return x
+
+
+def _assert_tracker_tables(got, want):
+    """tests/test_torch_detect.py's tolerances: the discrete state equal,
+    estimates and measurements within atol 1e-4, the filter within atol
+    1e-4, rtol 1e-5."""
+    for k in ("status", "lifetime", "history"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("estimate", "measurement"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=1e-6,
+                                   err_msg=k)
+    for k in ("x", "P", "S"):
+        np.testing.assert_allclose(got["kalman"][k], want["kalman"][k],
+                                   atol=1e-4, rtol=1e-5, err_msg=k)
+    for k in ("F1", "F2", "Q", "H", "R"):
+        np.testing.assert_array_equal(got["kalman"][k], want["kalman"][k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,frames", [(1, 1), (1, 16), (8, 1),
+                                             (8, 16)])
+def test_tracker_kernel_matches_plain(cuda, channels, frames):
+    """The tracker kernel against its plain version on the same card
+    candidates, 10 tracks, K = 384: from free tables over 16 frames, or one
+    frame from the tables that 8 plain frames left (live tracks)."""
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+    from passiveradar_torch.detect.measurements import get_measurements
+    lead = 8 if frames == 1 else 0
+    stack = torch.from_numpy(_tracker_scene(channels, channels,
+                                            lead + frames)).to(cuda)
+    extent = torch.tensor((256.0, 60.0), device=cuda)
+    cand, valid = get_measurements(stack, extent, 384)
+    table = tt.init_tracks(10, cuda, channels)
+    if lead:
+        table = tt._map(lambda a: a[-1].contiguous(),
+                        tt.multitarget_step_plain(table, cand[:, :lead],
+                                                  valid[:, :lead], 10))
+    cand = cand[:, lead:].contiguous()
+    valid = valid[:, lead:].contiguous()
+    before = trk.multitarget_step_kernel.launches
+    got = tt.to_host(trk.multitarget_step_kernel(table, cand, valid, 10))
+    assert trk.multitarget_step_kernel.launches == before + 1
+    want = tt.to_host(tt.multitarget_step_plain(table, cand, valid, 10))
+    torch.cuda.synchronize()
+    assert got["status"].shape == (frames, channels, 10)
+    _assert_tracker_tables(got, want)
+    assert (want["status"] > 0).any()
+
+
+@pytest.mark.cuda
+def test_tracker_step_makes_no_host_sync(cuda):
+    """multitarget_step on the card (the batched candidates and one kernel
+    launch) for 8 channels and for one: no host synchronisation, one
+    launch a call, the input table left as it was."""
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+    stack = torch.from_numpy(_tracker_scene(5, 8, 1)[:, 0]).to(cuda)
+    extent = torch.tensor((256.0, 60.0), device=cuda)
+    table = tt.init_tracks(10, cuda, 8)
+    one = tt.init_tracks(10, cuda)
+    tt.multitarget_step(table, stack, extent, 10, 384)     # load and warm
+    before = trk.multitarget_step_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tt.multitarget_step(table, stack, extent, 10, 384)
+        got_one = tt.multitarget_step(one, stack[3], extent, 10, 384)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trk.multitarget_step_kernel.launches == before + 2
+    assert got["status"].shape == (8, 10) and got_one["status"].shape == (10,)
+    _assert_tracker_tables(tt.to_host(tt._slot(got, 3)), tt.to_host(got_one))
+    assert (tt.to_host(table)["status"] == 0).all()
