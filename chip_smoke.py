@@ -6,8 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: every csrc/*.cu for sm_90a (the four kernels: the resampler,
-   NLMS, the fused FFT and the tracker step), csrc/nlms.cu again at the block
+2. build: every csrc/*.cu for sm_90a (the five kernels: the resampler,
+   NLMS, the fused FFT, the tracker step and the LS canceller's Levinson
+   recursion), csrc/nlms.cu again at the block
    length NLMS_OTHER_BLOCK and csrc/mix_regroup.cu again at each setting of
    MR_VARIANTS, one nvcc each, all started at once, from the checkout, with
    ptxas' registers and spills;
@@ -42,7 +43,11 @@ Phases, one JSON line each; any failure exits non-zero:
    ground-truth peaks of the range-Doppler maps; then one FM batch of 3
    frames with ``nlms_pallas``, card against CPU, at full width; then one
    FM batch with the LS canceller's full-length FFTs on the fused kernel
-   (``PASSIVERADAR_PALLAS_FFT=1``) against the cuFFT route;
+   (``PASSIVERADAR_PALLAS_FFT=1``) against the cuFFT route; then
+   (``levinson_kernel``) the Levinson kernel on the systems of that FM batch
+   and of the wideband band, against its plain loop and the loop in
+   complex128, and the FM map stack with the recursion on each of the
+   three, with times, ns a step, the bound and a dense-solve yardstick;
 5. streaming: the same capture through ``passiveradar_torch.cli.stream``
    (CAF, CFAR and the multitarget tracker per push) with the LS canceller
    under ``PASSIVERADAR_PALLAS_FFT=1`` and with ``nlms_pallas``, in full
@@ -72,10 +77,16 @@ Phases, one JSON line each; any failure exits non-zero:
    device memory; then one batch under torch.profiler (kernel launches,
    device busy and idle share, the heaviest kernels) and the preprocess
    stage alone (every kernel by name); then the LS batch on
-   cuFFT and on the fused FFT in turns, and one profiled fused batch;
+   cuFFT and on the fused FFT in turns, and one profiled fused batch; then
+   (``clutter_graph``) the LS clutter stage as a replayed CUDA graph
+   against the eager stage for the FM batch, one stream frame and a
+   wideband batch (ms in turns, bit-equality, peak memory, the graph's pool
+   and capture seconds), and the FM stage eager on the plain Levinson
+   loop, eager on the kernel and graphed, in turns and traced;
 9. cancellers: the steady-state FM batch through every clutter_impl
    (carry, coupled, segment) × clutter_solver (levinson, gs_matrix,
-   gs_dense, cholesky), the clutter stage's median ms and peak memory, each
+   gs_dense, cholesky), the clutter stage graphed and eager in turns (median
+   ms, bit-equality, peak memory, the graph's pool), each
    map stack against carry/levinson's (ALT_TOL, argmax equal); one 3-frame
    FM batch with coupled + gs_dense + the flattop CAF, card against CPU;
 10. alternative paths: the FM capture through ``cli.process`` with
@@ -194,6 +205,11 @@ FUSED_FFT_ENV = "PASSIVERADAR_PALLAS_FFT"
 # LS maps on the fused FFT vs the float64-FFT route, over the cuFFT route's
 # own distance from it (phase_ls_fused)
 FUSED_VS_F64 = 1.5
+# the Levinson kernel's x, and the FM map stack on it, vs the complex128
+# recursion, over the plain float32 loop's own distance from it
+# (phase_levinson_kernel)
+LEVINSON_VS_F64 = 2.0
+GRAPH_TURNS = 5          # eager, graph, graph, eager: timed runs each x2
 # the ground-truth cells of the FM capture (Doppler row, range column)
 STRONG_CELL = (432, 153)
 WEAK_CELL = (672, 120)
@@ -231,7 +247,6 @@ WIDE_TOL = 2e-4          # one CPI, card vs CPU, over the channel's peak
 # (tests/test_golden_e2e.py:93-100): LS amplifies each solver's float32
 # rounding at FM (ROADMAP §C)
 ALT_TOL = 2e-3
-CANCELLER_RUNS = 3       # timed runs of the clutter stage per impl × solver
 OPS_TOL = 1e-4           # the remaining ops, card vs CPU, over the peak
 # the sharded, grouped and multi-process paths: maps against the
 # single-device run over its peak (tests/test_pipeline.py's and
@@ -877,16 +892,10 @@ def phase_ls_fused(torch, dev, cfg):
     every frame's argmax equal to the cuFFT route's and be no farther from
     the float64 route than FUSED_VS_F64 times the cuFFT route is."""
     from passiveradar_torch import pipeline as pl
-    from passiveradar_torch.io.hdf5 import CaptureReader
     from passiveradar_torch.ops import fft_kernel as fk
 
-    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
     f = BATCH + 2
-    ref_np, srv_np = reader.read_pair_frames(0, f)
-    reader.close()
-    ref = torch.from_numpy(ref_np).to(dev)
-    srv = torch.from_numpy(srv_np).to(dev)
-    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+    ref, srv, ph, _, _ = fm_batch(torch, dev, cfg)
 
     def maps():
         return pl._process_frames_impl(ref, srv, ph, cfg).cpu().numpy()
@@ -917,16 +926,43 @@ def phase_ls_fused(torch, dev, cfg):
                              f"{launches} launches")
 
 
-def phase_ls_route_ab(torch, dev, cfg):
-    """The LS steady-state batch on the cuFFT route and on the fused-FFT
-    route in turns (cuFFT, fused, fused, cuFFT, five times): batch and
-    clutter-stage ms by CUDA events, the host time to enqueue one forward
-    FFT of the clutter's shape on each route (the median of ten loops of
-    20 calls, in the same turns), and one profiled batch on the fused
-    route."""
+class levinson_route:
+    """Context: the clutter stage's Levinson recursion through ``fn`` in
+    place of the kernel (``levinson_kernel.levinson_first_col_kernel``,
+    which ops/clutter.py looks up at call time and the clutter graph's key
+    holds)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from passiveradar_torch.ops import levinson_kernel as lk
+        self.lk, self.kernel = lk, lk.levinson_first_col_kernel
+        lk.levinson_first_col_kernel = self.fn
+
+    def __exit__(self, *exc):
+        self.lk.levinson_first_col_kernel = self.kernel
+
+
+def levinson_routes(torch):
+    """The two stand-ins of the kernel: its plain loop on the card in
+    complex64, and the same loop in complex128 rounded to complex64 (the
+    reference both are held against)."""
+    from passiveradar_torch.ops import levinson_kernel as lk
+
+    def f64(c):
+        return lk.levinson_first_col_plain(c.to(torch.complex128)).to(
+            torch.complex64)
+
+    return dict(plain=lk.levinson_first_col_plain, f64=f64)
+
+
+def fm_batch(torch, dev, cfg):
+    """The FM capture's first BATCH + 2 frames on the card: raw ref, srv,
+    phases, and the preprocessed (F, n) ref and srv the clutter stage
+    takes."""
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.io.hdf5 import CaptureReader
-    from passiveradar_torch.ops import fft_kernel as fk
 
     reader = CaptureReader(cfg, estimate_offset=False, device=dev)
     f = BATCH + 2
@@ -935,6 +971,291 @@ def phase_ls_route_ab(torch, dev, cfg):
     ref = torch.from_numpy(ref_np).to(dev)
     srv = torch.from_numpy(srv_np).to(dev)
     ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+    return (ref, srv, ph, pl._preprocess_impl(ref, ph, cfg),
+            pl._preprocess_impl(srv, ph, cfg))
+
+
+def wide_batch(torch, dev):
+    """bench_wideband.py's band, WIDE_BATCH CPIs with the echo, as the
+    (WIDE_BATCH · channels, cpi_samples) ref and srv rows its clutter stage
+    takes, and the config."""
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.synthetic import wideband_capture_arrays
+    from passiveradar_torch.wideband import channel_inputs
+
+    wcfg = derive_config(dict(WIDE, input_file="", output_fname="wb"))
+    wref, wsrv = wideband_capture_arrays(
+        wcfg, WIDE_BATCH, delay_samples=WIDE_DELAY * wcfg.wideband_channels,
+        doppler_hz=WIDE_DOPPLER_CELLS * wcfg.doppler_cell_width, seed=11)
+    wref = torch.from_numpy(wref.view(np.complex64).reshape(WIDE_BATCH, -1)
+                            ).to(dev)
+    wsrv = torch.from_numpy(wsrv.view(np.complex64).reshape(WIDE_BATCH, -1)
+                            ).to(dev)
+    rc, sc = channel_inputs(wref, wsrv, wcfg)
+    return rc, sc, wcfg
+
+
+def stage_systems(torch, call):
+    """The guarded (B, nb, m) autocorrelations that the LS stage hands its
+    solver when ``call()`` runs the eager stage once."""
+    from passiveradar_torch.ops import clutter
+
+    seen, real = [], clutter._solver_data
+
+    def spy(ac_all, m, solver):
+        seen.append(ac_all.clone())
+        return real(ac_all, m, solver)
+
+    with mock.patch.object(clutter, "_solver_data", spy):
+        call()
+    return seen[0]
+
+
+def per_system_rel(got, want):
+    """Largest distance of one system's x from the reference, over that
+    system's peak |x| (a guarded zero system's x is 1e25·e0 and would
+    swamp the live ones under one peak)."""
+    w = want.abs().amax(-1).clamp_min(1e-30)
+    return float(((got - want).abs().amax(-1) / w).max())
+
+
+def phase_levinson_kernel(torch, dev, cfg):
+    """The Levinson kernel (csrc/levinson.cu) on the systems of the real FM
+    batch (BATCH + 2 frames × 5 bins, m = 185, after the stage's guard) and
+    of bench_wideband.py's band (8 channels × 5 bins, m = 210): the kernel,
+    its plain loop on the card and the plain loop in complex128; the
+    kernel's per-system distance from the complex128 route at most
+    LEVINSON_VS_F64 times the plain loop's. Then the FM map stack
+    (process_frames, the clutter stage graphed) with the recursion on the
+    kernel, on the plain loop and in complex128: every frame's argmax equal
+    to the complex128 stack's, and the kernel stack no farther from it than
+    LEVINSON_VS_F64 times the plain stack; the kernel stack against the
+    plain one beside CHAIN_TOL. Times: the kernel's device time a call
+    (profiler) and ns a step, the call with its host side, the plain loop,
+    and the dense Cholesky solve of the same systems as a two-call
+    yardstick; the bound. Returns the kernels line's row."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops import clutter
+    from passiveradar_torch.ops import levinson_kernel as lk
+
+    lib_order = lk._library().levinson_max_order()
+    if lib_order != lk.MAX_ORDER:
+        raise AssertionError(f"csrc/levinson.cu takes m <= {lib_order}, the "
+                             f"wrapper {lk.MAX_ORDER}")
+    routes = levinson_routes(torch)
+    ref, srv, ph, r, s = fm_batch(torch, dev, cfg)
+    fm_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
+        r, s, cfg.num_range_cells, cfg.IF_sample_rate,
+        cfg.clutter_doppler_bins))
+    rc, sc, wcfg = wide_batch(torch, dev)
+    chans = len(wcfg.wideband_channel_select)        # one CPI's rows
+    rc, sc = rc[:chans], sc[:chans]
+    wide_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
+        rc, sc, wcfg.num_range_cells, wcfg.IF_sample_rate,
+        wcfg.clutter_doppler_bins))
+    shapes, bad = {}, []
+    for name, ac in (("fm", fm_ac), ("wideband", wide_ac)):
+        c = ac.reshape(-1, ac.shape[-1]).contiguous()
+        b, m = c.shape
+        got = lk.levinson_first_col_kernel(c)
+        plain = routes["plain"](c)
+        f64 = routes["f64"](c)
+        torch.cuda.synchronize()
+        dist = dict(kernel_vs_f64=per_system_rel(got, f64),
+                    plain_vs_f64=per_system_rel(plain, f64),
+                    kernel_vs_plain=per_system_rel(got, plain))
+        e0 = torch.zeros_like(c)
+        e0[:, 0] = 1.0
+        dev_ms = kernel_device_ms(
+            torch, lambda c=c: lk.levinson_first_col_kernel(c),
+            "levinson_kernel")
+        ms = dict(kernel=dev_ms,
+                  kernel_call=cuda_ms(
+                      torch, lambda c=c: lk.levinson_first_col_kernel(c), 50),
+                  plain=cuda_ms(torch, lambda c=c: routes["plain"](c), 3,
+                                warmup=1),
+                  dense_solve_yardstick=cuda_ms(
+                      torch, lambda c=c: clutter._solve_complex(
+                          clutter._toeplitz_matrix(c), e0, assume_pd=True),
+                      10))
+        nbytes = 2 * b * m * 8
+        flops = b * (12.0 * m * (m - 1) + 16.0 * (m - 1))
+        bound_ms, bound_by = flops_bound(nbytes, flops)
+        shapes[name] = dict(
+            systems=b, m=m, finite=bool(torch.isfinite(
+                torch.view_as_real(got)).all()),
+            max_abs_err_vs_plain=float((got - plain).abs().max()),
+            distance=dist, ms=ms, ns_per_step=dev_ms * 1e6 / max(m - 1, 1),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / dev_ms)
+        if not (shapes[name]["finite"] and dist["kernel_vs_f64"]
+                <= LEVINSON_VS_F64 * dist["plain_vs_f64"]):
+            bad.append(name)
+
+    def stack():
+        return pl._process_frames_impl(ref, srv, ph, cfg).cpu().numpy()
+
+    stacks = dict(kernel=stack())
+    for route in ("plain", "f64"):
+        with levinson_route(routes[route]):
+            stacks[route] = stack()
+    kernel_f64, same = compare_to(stacks["kernel"], stacks["f64"])
+    plain_f64, plain_same = compare_to(stacks["plain"], stacks["f64"])
+    kernel_plain, _ = compare_to(stacks["kernel"], stacks["plain"])
+    maps = dict(frames=BATCH + 2, kernel_vs_f64=kernel_f64,
+                plain_vs_f64=plain_f64, kernel_vs_plain=kernel_plain,
+                chain_tol=CHAIN_TOL, argmax_equal_kernel_vs_f64=same,
+                argmax_equal_plain_vs_f64=plain_same)
+    emit(dict(phase="levinson_kernel", tol_vs_f64=LEVINSON_VS_F64,
+              max_order=lib_order, map_stack=maps, **shapes))
+    if bad or not same or kernel_f64 > LEVINSON_VS_F64 * plain_f64 or \
+            not np.all(np.isfinite(stacks["kernel"])):
+        raise AssertionError(f"levinson kernel: systems {bad}, maps {maps}")
+    r = shapes["fm"]
+    return dict(name="levinson_first_col", route="cuda",
+                source="passiveradar_torch/csrc/levinson.cu",
+                replaces="passiveradar_tpu/ops/clutter.py:113",
+                launches=None,
+                max_abs_err=max(x["max_abs_err_vs_plain"]
+                                for x in shapes.values()),
+                ms=r["ms"]["kernel"], plain_ms=r["ms"]["plain"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None)
+
+
+def graph_entry(key):
+    """The clutter graph kept under ``key`` (ops/clutter_graph.py)."""
+    from passiveradar_torch.ops import clutter_graph as cg
+    return cg._graphs[key[0].index][key]
+
+
+def eager_vs_graph(torch, eager, graphed, key):
+    """``eager()`` and ``graphed()`` (one clutter stage each) in turns:
+    the graphed stage's first call (warm-up and capture) timed on the host,
+    then eager, graph, graph, eager GRAPH_TURNS times by CUDA events; the
+    replay against the eager result (bit-equal, else the largest
+    difference over the peak); peak memory of an eager call above its
+    inputs, of a replay, and the graph's private pool."""
+    torch.cuda.synchronize()
+    first, first_ms = synced_ms(torch, graphed)
+    entry = graph_entry(key)
+    want = eager()
+    got = graphed()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_first = float((first - want).abs().max() / want.abs().max())
+    del first, got
+    ms = dict(eager=[], graph=[])
+    for _ in range(GRAPH_TURNS):
+        for which in ("eager", "graph", "graph", "eager"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            (eager if which == "eager" else graphed)()
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[which].append(ev[0].elapsed_time(ev[1]))
+    peak = {}
+    for which, fn in (("eager", eager), ("graph", graphed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peak[which] = torch.cuda.max_memory_allocated() - base
+        del out
+    return dict(bit_equal=equal, rel_diff_over_peak=rel,
+                first_call_rel_diff=rel_first,
+                ms_median={k: float(np.median(v)) for k, v in ms.items()},
+                ms_runs=ms, first_call_ms=first_ms,
+                warmup_s=entry.warmup_s, capture_s=entry.capture_s,
+                pool_bytes=entry.pool_bytes,
+                launches_a_replay=entry.launches,
+                peak_bytes_eager=peak["eager"],
+                peak_bytes_replay=peak["graph"])
+
+
+def phase_clutter_graph(torch, dev, cfg):
+    """The LS clutter stage (carry, levinson, cuFFT) graphed against eager
+    (eager_vs_graph) for the FM batch (BATCH + 2 frames), the stream's one
+    frame and bench_wideband.py's WIDE_BATCH-CPI batch (8 channels each);
+    for the FM batch also the eager stage with the plain Levinson loop (the
+    stage as it was), the three in turns (plain, kernel, graph, graph,
+    kernel, plain; CUDA events), and one traced call of each: device
+    kernels, busy and idle share. The replay must equal the eager stage bit
+    for bit."""
+    from passiveradar_torch.ops import clutter
+    from passiveradar_torch.ops import clutter_graph as cg
+
+    _, _, _, r, s = fm_batch(torch, dev, cfg)
+    rc, sc, wcfg = wide_batch(torch, dev)
+    cases = dict(fm=(r, s, cfg), fm_push=(r[:1].contiguous(),
+                                          s[:1].contiguous(), cfg),
+                 wideband=(rc, sc, wcfg))
+    out, bad = {}, []
+    for name, (x, y, c) in cases.items():
+        args = (x, y, c.num_range_cells, c.IF_sample_rate,
+                c.clutter_doppler_bins)
+        row = eager_vs_graph(
+            torch, lambda args=args: clutter.ls_filter_multiple(*args),
+            lambda args=args: cg.ls_filter_multiple_graphed(*args),
+            cg.graph_key(*args))
+        row.update(rows=x.shape[0], samples=x.shape[1])
+        out[name] = row
+        if not row["bit_equal"]:
+            bad.append(name)
+
+    args = (r, s, cfg.num_range_cells, cfg.IF_sample_rate,
+            cfg.clutter_doppler_bins)
+    plain = levinson_route(levinson_routes(torch)["plain"])
+    runs = dict(eager_plain=[], eager_kernel=[], graph=[])
+
+    def one(which):
+        if which == "eager_plain":
+            with plain:
+                return clutter.ls_filter_multiple(*args)
+        if which == "eager_kernel":
+            return clutter.ls_filter_multiple(*args)
+        return cg.ls_filter_multiple_graphed(*args)
+
+    for which in runs:
+        one(which)
+    for _ in range(3):
+        for which in ("eager_plain", "eager_kernel", "graph", "graph",
+                      "eager_kernel", "eager_plain"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            one(which)
+            ev[1].record()
+            torch.cuda.synchronize()
+            runs[which].append(ev[0].elapsed_time(ev[1]))
+    traces = {}
+    for which in runs:
+        t = trace(torch, lambda which=which: one(which))
+        t.pop("by_name", None)
+        traces[which] = t
+    fm_stage = dict(ms_median={k: float(np.median(v)) for k, v in
+                               runs.items()}, ms_runs=runs, traced=traces)
+    emit(dict(phase="clutter_graph", impl="carry", solver="levinson",
+              max_graphs=cg.MAX_GRAPHS, fm_stage=fm_stage, **out))
+    if bad:
+        raise AssertionError(f"clutter graph replays differ from eager: "
+                             f"{ {k: out[k]['rel_diff_over_peak'] for k in bad} }")
+
+
+def phase_ls_route_ab(torch, dev, cfg):
+    """The LS steady-state batch on the cuFFT route and on the fused-FFT
+    route in turns (cuFFT, fused, fused, cuFFT, five times): batch and
+    clutter-stage ms by CUDA events, the host time to enqueue one forward
+    FFT of the clutter's shape on each route (the median of ten loops of
+    20 calls, in the same turns), and one profiled batch on the fused
+    route."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops import fft_kernel as fk
+
+    f = BATCH + 2
+    ref, srv, ph, _, _ = fm_batch(torch, dev, cfg)
 
     def run():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1115,7 +1436,8 @@ def phase_stream(torch, dev, params):
             want = dict(mix_regroup_matmul=2 * FRAMES,
                         nlms_filter_pallas=0 if fused else FRAMES,
                         fft_fused=2 * FRAMES if fused else 0,
-                        multitarget_step=FRAMES + 1)
+                        multitarget_step=FRAMES + 1,
+                        levinson_first_col=FRAMES if fused else 0)
             if res["frames"] != FRAMES or launches != want:
                 raise AssertionError(f"stream {method}/{detail}: frames "
                                      f"{res['frames']}, launches {launches}")
@@ -1184,15 +1506,10 @@ def confirmed_near(status, est, point):
 
 
 def kernel_counters():
-    """The four kernels' launch counters by the kernels line's names."""
-    from passiveradar_torch.detect import tracker_kernel as trk
-    from passiveradar_torch.ops import fft_kernel as fk
-    from passiveradar_torch.ops import nlms_kernel as nk
-    from passiveradar_torch.ops import resample_kernel as rk
-    return dict(mix_regroup_matmul=rk.mix_regroup_matmul,
-                nlms_filter_pallas=nk.nlms_filter_batch,
-                fft_fused=fk.fft_fused,
-                multitarget_step=trk.multitarget_step_kernel)
+    """The five kernels' launch counters by the kernels line's names (the
+    ones a replayed clutter graph adds to)."""
+    from passiveradar_torch.ops.clutter_graph import counters
+    return counters()
 
 
 def zero_counts():
@@ -1778,7 +2095,11 @@ def phase_wideband(torch, dev):
               batch_ms=batch_ms, batch_cpi_per_s=WIDE_BATCH / batch_ms * 1e3,
               realtime_cpi_per_s=1 / cfg.frame_interval,
               launches=process_launches, argmax_misses=misses))
-    if n != WIDE_CPIS or misses or any(process_launches.values()):
+    # one clutter stage a batch, the Levinson kernel its only launch
+    if n != WIDE_CPIS or misses or process_launches != dict(
+            mix_regroup_matmul=0, nlms_filter_pallas=0, fft_fused=0,
+            multitarget_step=0,
+            levinson_first_col=-(-WIDE_CPIS // WIDE_BATCH)):
         raise AssertionError(f"cli.wideband: {n} CPIs, argmax misses "
                              f"{misses}, launches {process_launches}")
 
@@ -1819,7 +2140,8 @@ def phase_wideband(torch, dev):
                   card_vs_cpu_replay=replay, **split))
         want = dict(mix_regroup_matmul=0, nlms_filter_pallas=0,
                     fft_fused=2 * WIDE_CPIS if fused else 0,
-                    multitarget_step=WIDE_CPIS + 1)
+                    multitarget_step=WIDE_CPIS + 1,
+                    levinson_first_col=WIDE_CPIS)
         if res["frames"] != WIDE_CPIS or launches != want or \
                 len(pushes) != WIDE_CPIS:
             raise AssertionError(f"wideband stream (fused {fused}): frames "
@@ -2031,9 +2353,6 @@ def phase_main_path(torch):
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io import zarr_min
     from passiveradar_torch.io.synthetic import Target, write_synth_capture
-    from passiveradar_torch.ops import fft_kernel as fk
-    from passiveradar_torch.ops import nlms_kernel as nk
-    from passiveradar_torch.ops import resample_kernel as rk
 
     os.makedirs(WORK, exist_ok=True)
     # zarr directory stores for the capture and the maps: they need no
@@ -2053,22 +2372,20 @@ def phase_main_path(torch):
         yaml.safe_dump(params, fh)
 
     batches = -(-FRAMES // BATCH)
-    rk.mix_regroup_matmul.launches = 0
-    nk.nlms_filter_batch.launches = 0
-    fk.fft_fused.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     n = process_main(["--config", cfg_path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rk.mix_regroup_matmul.launches
+    counts = read_counts()
+    launches = counts["mix_regroup_matmul"]
     if n != FRAMES:
         raise AssertionError(f"processed {n} of {FRAMES} frames")
-    if launches < 2 * batches or nk.nlms_filter_batch.launches or \
-            fk.fft_fused.launches:
-        raise AssertionError(f"mix_regroup_matmul launched {launches} times "
-                             f"for {batches} batches, nlms "
-                             f"{nk.nlms_filter_batch.launches}, fft_fused "
-                             f"{fk.fft_fused.launches}")
+    # the clutter stage's Levinson kernel: once a batch, whether the batch
+    # ran eager (the graph's warm-up) or as a replay
+    if launches < 2 * batches or counts["nlms_filter_pallas"] or \
+            counts["fft_fused"] or counts["levinson_first_col"] != batches:
+        raise AssertionError(f"launches {counts} for {batches} batches")
 
     stack = np.asarray(zarr_min.open(cfg.range_doppler_map_fname, mode="r"))
     if stack.shape != (cfg.num_doppler_cells, cfg.num_range_cells + 1,
@@ -2078,12 +2395,11 @@ def phase_main_path(torch):
     emit(dict(phase="main_path", clutter_method="ls_multiple", frames=n,
               batches=batches, weak_row_cells_118_122=weak_row,
               capture_gen_s=gen_s, wall_s=wall, wall_frames_per_s=n / wall,
-              launches=dict(mix_regroup_matmul=launches),
-              strong_peak=strong, weak_peak=weak))
+              launches=counts, strong_peak=strong, weak_peak=weak))
     if strong != (432, 153) or weak != (672, 120):
         raise AssertionError(f"ground truth peaks {strong}, {weak} != "
                              "(432, 153), (672, 120)")
-    return params, cfg, launches
+    return params, cfg, counts
 
 
 H5_FIXTURE = os.path.join("tests", "data", "make_h5py_fixture.py")
@@ -2295,15 +2611,10 @@ def phase_hdf5(torch, params, cfg):
 
 def phase_steady(torch, dev, cfg):
     from passiveradar_torch import pipeline as pl
-    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops import clutter_graph as cg
 
-    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
     f = BATCH + 2
-    ref_np, srv_np = reader.read_pair_frames(0, f)
-    reader.close()
-    ref = torch.from_numpy(ref_np).to(dev)
-    srv = torch.from_numpy(srv_np).to(dev)
-    ph = torch.from_numpy(pl.frame_phases(cfg, list(range(f)))).to(dev)
+    ref, srv, ph, _, _ = fm_batch(torch, dev, cfg)
     for _ in range(2):
         pl._process_frames_impl(ref, srv, ph, cfg)
     torch.cuda.synchronize()
@@ -2335,7 +2646,13 @@ def phase_steady(torch, dev, cfg):
               stage_ms_median={k: float(np.median(v))
                                for k, v in stages.items()},
               stage_ms_runs=stages,
-              max_memory_allocated=torch.cuda.max_memory_allocated()))
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              # a replay allocates only its output: the clutter graphs'
+              # private pools are reserved memory
+              memory_reserved=torch.cuda.memory_reserved(),
+              clutter_graph_pools={f"{g['shape']} {g['impl']}/{g['solver']}"
+                                   f"{' fused' if g['fused_fft'] else ''}":
+                                   g["pool_bytes"] for g in cg.cache_info()}))
     profile_batch(torch, pl, ref, srv, ph, cfg)
 
 
@@ -2417,15 +2734,18 @@ def compare_to(got, want):
 
 def phase_cancellers(torch, dev, params):
     """One device-resident FM batch (BATCH + 2 halo frames) through every
-    clutter_impl × clutter_solver: the clutter stage's median ms over
-    CANCELLER_RUNS runs, its peak device memory, and each map stack (the
-    boxcar CAF) against carry/levinson's on the card (ALT_TOL of the peak,
-    argmax equal in every frame); then one 3-frame FM batch with coupled +
-    gs_dense + the flattop CAF, the card against the CPU under the same
-    bound."""
+    clutter_impl × clutter_solver: the clutter stage as the pipeline runs
+    it (a replayed CUDA graph) against the eager stage (eager_vs_graph: ms
+    in turns, the replay bit-equal to eager, peak memory, the graph's pool
+    and capture seconds), and each map stack (the boxcar CAF) against
+    carry/levinson's on the card (ALT_TOL of the peak, argmax equal in
+    every frame); then one 3-frame FM batch with coupled + gs_dense + the
+    flattop CAF, the card against the CPU under the same bound."""
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.ops import clutter
+    from passiveradar_torch.ops import clutter_graph as cg
     from passiveradar_torch.ops.clutter import IMPLS, SOLVERS
 
     base = derive_config(params)
@@ -2440,28 +2760,33 @@ def phase_cancellers(torch, dev, params):
     for impl in IMPLS:
         for solver in SOLVERS:
             cfg = derive_config(alt_params(params, impl, solver, True, "x"))
-            clean = pl._clutter_impl(r, s, cfg)            # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base_mem = torch.cuda.memory_allocated()
-            ms = []
-            for _ in range(CANCELLER_RUNS):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                clean = pl._clutter_impl(r, s, cfg)
-                ev[1].record()
-                torch.cuda.synchronize()
-                ms.append(ev[0].elapsed_time(ev[1]))
-            peak = torch.cuda.max_memory_allocated() - base_mem
+            args = (r, s, cfg.num_range_cells, cfg.IF_sample_rate,
+                    cfg.clutter_doppler_bins)
+            g = eager_vs_graph(
+                torch, lambda args=args, impl=impl, solver=solver:
+                clutter.ls_filter_multiple(*args, impl=impl, solver=solver),
+                lambda cfg=cfg: pl._clutter_impl(r, s, cfg),
+                cg.graph_key(*args, solver=solver, impl=impl))
+            clean = pl._clutter_impl(r, s, cfg)
             maps = pl._caf_batch_impl(r, clean, cfg).cpu().numpy()
             del clean
             if base_maps is None:       # IMPLS[0], SOLVERS[0]: carry, levinson
                 base_maps = maps
             rel, same = compare_to(maps, base_maps)
-            ok = bool(np.all(np.isfinite(maps)) and rel < ALT_TOL and same)
+            ok = bool(np.all(np.isfinite(maps)) and rel < ALT_TOL and same
+                      and g["bit_equal"])
             row = dict(impl=impl, solver=solver,
-                       clutter_ms_median=float(np.median(ms)),
-                       clutter_ms_runs=ms, peak_bytes_above_inputs=peak,
+                       clutter_ms_median=g["ms_median"]["graph"],
+                       eager_ms_median=g["ms_median"]["eager"],
+                       clutter_ms_runs=g["ms_runs"]["graph"],
+                       eager_ms_runs=g["ms_runs"]["eager"],
+                       graph_bit_equal=g["bit_equal"],
+                       graph_rel_diff=g["rel_diff_over_peak"],
+                       peak_bytes_eager=g["peak_bytes_eager"],
+                       peak_bytes_replay=g["peak_bytes_replay"],
+                       pool_bytes=g["pool_bytes"], warmup_s=g["warmup_s"],
+                       capture_s=g["capture_s"],
+                       launches_a_replay=g["launches_a_replay"],
                        rel_err_vs_carry_levinson=rel, argmax_equal=same)
             rows.append(row)
             emit(dict(phase="cancellers", buffer_frames=f, **row))
@@ -2552,7 +2877,8 @@ def phase_main_path_alt(torch, dev, params):
     if n != FRAMES or not finite:
         raise AssertionError(f"alt cli.process: {n} frames, finite {finite}")
     if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                        fft_fused=0, multitarget_step=0):
+                        fft_fused=0, multitarget_step=0,
+                        levinson_first_col=batches):
         raise AssertionError(f"alt cli.process launches {launches}")
     if strong != STRONG_CELL:
         raise AssertionError(f"alt cli.process strong peak {strong}")
@@ -2635,7 +2961,8 @@ def phase_stream_alt(torch, dev, params):
               wide_tol=WIDE_TOL))
     if res["frames"] != FRAMES or launches != dict(
             mix_regroup_matmul=2 * FRAMES, nlms_filter_pallas=0,
-            fft_fused=0, multitarget_step=FRAMES + 1):
+            fft_fused=0, multitarget_step=FRAMES + 1,
+            levinson_first_col=FRAMES):
         raise AssertionError(f"alt stream: frames {res['frames']}, "
                              f"launches {launches}")
     if not hits:
@@ -2780,7 +3107,8 @@ def phase_sharded(torch, dev, params):
             want_b2 = n if method == "nlms_pallas" else 0
             if rel > SHARD_TOL or not same or exchanges != 4 or counts != dict(
                     mix_regroup_matmul=2 * n, nlms_filter_pallas=want_b2,
-                    fft_fused=0, multitarget_step=0):
+                    fft_fused=0, multitarget_step=0,
+                    levinson_first_col=n - want_b2):
                 raise AssertionError(
                     f"sharded {method} on {label}: rel {rel}, argmax "
                     f"equal {same}, exchanges {exchanges}, launches "
@@ -2835,7 +3163,7 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
             launches = counts
         if n != FRAMES or rel > SHARD_TOL or not same or counts != dict(
                 mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                fft_fused=0, multitarget_step=0):
+                fft_fused=0, multitarget_step=0, levinson_first_col=batches):
             emit(dict(phase="dispatch_groups", runs=runs))
             raise AssertionError(f"--dispatch-groups {g}: {n} frames, max "
                                  f"difference {diff}, launches {counts}")
@@ -2868,7 +3196,7 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
                   launches=group_counts)))
     if group_diff != 0 or group_counts != dict(
             mix_regroup_matmul=4, nlms_filter_pallas=0, fft_fused=0,
-            multitarget_step=0):
+            multitarget_step=0, levinson_first_col=2):
         raise AssertionError(f"process_frames_groups: difference "
                              f"{group_diff}, launches {group_counts}")
     return launches
@@ -2920,13 +3248,15 @@ CHILD = """
 import json, sys
 from passiveradar_torch.cli.process import main
 from passiveradar_torch.detect import tracker_kernel
-from passiveradar_torch.ops import fft_kernel, nlms_kernel, resample_kernel
+from passiveradar_torch.ops import fft_kernel, levinson_kernel, \
+    nlms_kernel, resample_kernel
 main(sys.argv[1:])
 print(json.dumps(dict(
     mix_regroup_matmul=resample_kernel.mix_regroup_matmul.launches,
     nlms_filter_pallas=nlms_kernel.nlms_filter_batch.launches,
     fft_fused=fft_kernel.fft_fused.launches,
-    multitarget_step=tracker_kernel.multitarget_step_kernel.launches)))
+    multitarget_step=tracker_kernel.multitarget_step_kernel.launches,
+    levinson_first_col=levinson_kernel.levinson_first_col_kernel.launches)))
 """
 
 
@@ -3079,7 +3409,8 @@ def phase_multiprocess(torch, params, want_stack):
                              f"peaks {strong}, {weak}")
     batches = sum(-(-n // BATCH) for n in parts)
     if launches != dict(mix_regroup_matmul=2 * batches, nlms_filter_pallas=0,
-                        fft_fused=0, multitarget_step=0):
+                        fft_fused=0, multitarget_step=0,
+                        levinson_first_col=batches):
         raise AssertionError(f"multiprocess launches {launches}")
     return launches
 
@@ -3452,11 +3783,13 @@ def phase_batch_sweep(torch, dev, params):
             want_b2 = 1 if method == "nlms_pallas" else 0
             ok = (rel <= SWEEP_TOL and same and counts[f] == dict(
                 mix_regroup_matmul=2, nlms_filter_pallas=want_b2,
-                fft_fused=0, multitarget_step=0)
+                fft_fused=0, multitarget_step=0,
+                levinson_first_col=1 - want_b2)
                 and bool(torch.isfinite(maps).all()))
             rows.append(dict(clutter_method=method, frames=f,
                              rel_err_vs_batch8=rel, argmax_equal=same,
-                             launches=counts[f], peak_memory_bytes=peaks[f]))
+                             launches=counts[f], peak_memory_bytes=peaks[f],
+                             memory_reserved_bytes=torch.cuda.memory_reserved()))
             if not ok:
                 raise AssertionError(f"batch_sweep {method} F={f}: rel {rel},"
                                      f" argmax equal {same}, launches "
@@ -3591,11 +3924,12 @@ def main() -> int:
     phase_chain_parity(torch, dev)
     phase_nlms_chain_parity(torch, dev)
     try:
-        params, cfg, launches = phase_main_path(torch)
+        params, cfg, main_counts = phase_main_path(torch)
         hdf5 = phase_hdf5(torch, params, cfg)
         row_nlms["launches"] = phase_nlms_main_path(torch, params)
         phase_nlms_fm_parity(torch, dev, params)
         phase_ls_fused(torch, dev, cfg)
+        row_lev = phase_levinson_kernel(torch, dev, cfg)
         stream = phase_stream(torch, dev, params)
         row_fft["launches"] = stream["ls_multiple"]["fft_fused"]
         post = phase_postprocess(torch, dev, cfg)
@@ -3603,6 +3937,7 @@ def main() -> int:
         wide = phase_wideband(torch, dev)
         phase_steady(torch, dev, cfg)
         phase_ls_route_ab(torch, dev, cfg)
+        phase_clutter_graph(torch, dev, cfg)
         phase_steady(torch, dev,
                      derive_config(dict(params, clutter_method="nlms_pallas")))
         phase_cancellers(torch, dev, params)
@@ -3613,13 +3948,14 @@ def main() -> int:
         last = step13(torch, dev, params, cfg)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    row["launches"] = launches
+    row["launches"] = main_counts["mix_regroup_matmul"]
+    row_lev["launches"] = main_counts["levinson_first_col"]
     # every path's own count (set to 0 just before it): the maps that the
     # postprocess phase reads come from the LS cli.process run
     later = dict(process_hdf5=hdf5, postprocess=post, **wide,
                  process_alt=process_alt,
                  stream_alt=stream_alt, **parallel, **last)
-    row["launches_by_path"] = dict(process_ls=launches,
+    row["launches_by_path"] = dict(process_ls=row["launches"],
                                    stream_ls_fused=stream["ls_multiple"]
                                    ["mix_regroup_matmul"],
                                    stream_nlms_pallas=stream["nlms_pallas"]
@@ -3632,11 +3968,16 @@ def main() -> int:
     row_trk["launches_by_path"] = dict(
         stream_ls_fused=row_trk["launches"],
         stream_nlms_pallas=stream["nlms_pallas"]["multitarget_step"])
-    for r in (row, row_nlms, row_fft, row_trk):
+    row_lev["launches_by_path"] = dict(
+        process_ls=row_lev["launches"],
+        stream_ls_fused=stream["ls_multiple"]["levinson_first_col"],
+        stream_nlms_pallas=stream["nlms_pallas"]["levinson_first_col"])
+    rows = (row, row_nlms, row_fft, row_trk, row_lev)
+    for r in rows:
         r["launches_by_path"].update(
             {path: counts[r["name"]] for path, counts in later.items()})
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
-    emit({"kernels": [row, row_nlms, row_fft, row_trk]})
+    emit({"kernels": list(rows)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,15 +24,25 @@ dense solves use ``torch.linalg`` on the complex systems directly (the JAX
 package's real 2m embedding is a TPU linalg workaround), except the
 pseudo-inverse of ``ls_filter_svd``, whose cutoff is defined on that
 embedding.
+
+The constant tables of ``ls_filter_multiple`` (phase tables, the bin
+frequencies, the roll ramp, the Toeplitz gather indices, the bin-pair
+indices) are made once per (device, shape, parameter) and kept, so the
+stage copies nothing from the host and can be captured as a CUDA graph
+(ops/clutter_graph.py). Those caches are unbounded: a replayed graph reads
+the tables by address, so they must outlive it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from passiveradar_torch._device import on_device
 from passiveradar_torch.config import nextpow2
+from passiveradar_torch.ops import levinson_kernel
 from passiveradar_torch.ops.fft import fft_auto, ifft_auto
 from passiveradar_torch.ops.mixer import frequency_shift
 from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
@@ -80,13 +90,18 @@ def _solve_complex(a: torch.Tensor, b: torch.Tensor,
     return torch.linalg.solve(a, b.unsqueeze(-1)).squeeze(-1)
 
 
+@functools.cache
+def _toeplitz_index(m: int, device: torch.device):
+    """(|i − j| gather indices, i ≥ j mask), each (m, m), on ``device``."""
+    d = np.arange(m)[:, None] - np.arange(m)[None, :]
+    return (torch.from_numpy(np.abs(d)).to(device),
+            torch.from_numpy(d >= 0).to(device))
+
+
 def _toeplitz_matrix(c: torch.Tensor) -> torch.Tensor:
     """Dense Hermitian Toeplitz matrices (..., m, m) with first columns c."""
-    m = c.shape[-1]
-    d = np.arange(m)[:, None] - np.arange(m)[None, :]
-    idx = torch.from_numpy(np.abs(d)).to(c.device)
+    idx, lower = _toeplitz_index(c.shape[-1], c.device)
     cg = c[..., idx]
-    lower = torch.from_numpy(d >= 0).to(c.device)
     return torch.where(lower, cg, cg.conj())
 
 
@@ -115,31 +130,17 @@ def levinson_first_col(c: torch.Tensor) -> torch.Tensor:
     """First column x = T⁻¹e₀ of each Hermitian Toeplitz T, batched.
 
     ``c`` (..., m) is the first column of each T. Levinson-Durbin over the
-    order: m−1 dependent steps on a (batch, m) state (reference analog:
-    scipy.solve_toeplitz, clutter_removal.py:109-160). ``ar`` carries the
-    reversed-conjugate polynomial, updated by a one-sample shift.
+    order (reference analog: scipy.solve_toeplitz,
+    clutter_removal.py:109-160): on a CUDA tensor one launch of the kernel
+    of ops/levinson_kernel.py for the whole batch, on a CPU tensor its
+    plain loop of m−1 dependent steps.
     """
-    batch = c.shape[:-1]
+    if c.device.type != "cuda":
+        return levinson_kernel.levinson_first_col_plain(c)
     m = c.shape[-1]
-    cb = c.reshape(-1, m)
-    nb = cb.shape[0]
-    z = torch.zeros((nb, m), dtype=cb.dtype, device=cb.device)
-    # cf_pad[:, 2m-1-k+j] = c[k-j] (zero outside 0..m-1)
-    cf_pad = torch.cat([z, torch.flip(cb, [-1]), z], dim=-1)
-    a = torch.zeros_like(cb)
-    a[:, 0] = 1.0
-    e = cb[:, 0].real.clone()
-    ar = torch.nn.functional.pad(a[:, :-1], (1, 0))
-    for k in range(1, m):
-        crev = cf_pad[:, 2 * m - 1 - k:3 * m - 1 - k]
-        acc = (a * crev).sum(-1)
-        kap = -acc / e
-        a_new = a + kap[:, None] * ar
-        ar = torch.nn.functional.pad((ar + kap.conj()[:, None] * a)[:, :-1],
-                                     (1, 0))
-        e = e * (1.0 - kap.abs() ** 2)
-        a = a_new
-    return (a / e[:, None]).reshape(batch + (m,))
+    x = levinson_kernel.levinson_first_col_kernel(
+        c.reshape(-1, m).contiguous())
+    return x.reshape(c.shape)
 
 
 def gs_generators(x: torch.Tensor, fft_len: int):
@@ -282,10 +283,37 @@ def ls_filter_toeplitz(ref, srv, filter_len: int, peek: int = 10,
     return (out, taps) if return_filter else out
 
 
-def _phase_tab(mus, tau: np.ndarray, n: int, device) -> torch.Tensor:
+def _phase_tab(mus, tau: np.ndarray, n: int) -> np.ndarray:
+    """e^{j2π·μ_b·τ/n} (nb, len(τ)) complex64 from float64 cycles."""
     cyc = np.mod(np.outer(np.asarray(mus), tau / n), 1.0)
-    return torch.from_numpy(np.exp(2j * np.pi * cyc).astype(
-        np.complex64)).to(device)
+    return np.exp(2j * np.pi * cyc).astype(np.complex64)
+
+
+@functools.cache
+def _edge_phases(mus: tuple, n: int, m: int, peek: int,
+                 device: torch.device):
+    """The phase tables of the per-bin heads (samples peek … peek+m−1) and
+    tails (n−m+peek … n+peek−1, wrapped) on ``device``."""
+    tau_h = np.arange(peek, peek + m, dtype=np.float64)
+    tau_t = np.arange(n - m + peek, n + peek, dtype=np.float64)
+    tau_t = np.where(tau_t < n, tau_t, tau_t - n)
+    return (torch.from_numpy(_phase_tab(mus, tau_h, n)).to(device),
+            torch.from_numpy(_phase_tab(mus, tau_t, n)).to(device))
+
+
+@functools.cache
+def _bin_freqs(bins: tuple, device: torch.device) -> torch.Tensor:
+    """The Doppler bins (nb,) float32 on ``device``."""
+    return torch.tensor(np.asarray(bins, np.float32), device=device)
+
+
+@functools.cache
+def _roll_ramp(n: int, peek: int, device: torch.device) -> torch.Tensor:
+    """e^{j2π·peek·k/n} (n,) complex64 on ``device``: the spectrum of a
+    time roll by −peek."""
+    return torch.from_numpy(np.exp(
+        2j * np.pi * np.mod(np.arange(n, dtype=np.float64) * peek / n, 1.0)
+    ).astype(np.complex64)).to(device)
 
 
 def _modulated_ref_spectra(ref: torch.Tensor, n: int, m: int, peek: int,
@@ -313,16 +341,14 @@ def _modulated_ref_spectra(ref: torch.Tensor, n: int, m: int, peek: int,
 
     head_base = ref[:, peek:peek + m]
     tail_base = torch.cat([ref[:, n - m + peek:], ref[:, :peek]], dim=-1)
-    tau_h = np.arange(peek, peek + m, dtype=np.float64)
-    tau_t = np.arange(n - m + peek, n + peek, dtype=np.float64)
-    tau_t = np.where(tau_t < n, tau_t, tau_t - n)
-    heads = head_base[:, None, :] * _phase_tab(mus, tau_h, n, dev)[None]
-    tails = tail_base[:, None, :] * _phase_tab(mus, tau_t, n, dev)[None]
+    head_tab, tail_tab = _edge_phases(tuple(mus), n, m, peek, dev)
+    heads = head_base[:, None, :] * head_tab[None]
+    tails = tail_base[:, None, :] * tail_tab[None]
 
     if order == 0:
         t32 = torch.arange(n, dtype=torch.float32, device=dev) / float(
             np.float32(sample_rate))
-        fb = torch.tensor(np.asarray(bins, np.float32), device=dev)
+        fb = _bin_freqs(tuple(bins), dev)
         theta = 2.0 * np.pi * fb[:, None] * t32[None, :]
         rs_all = torch.roll(
             ref[:, None, :] * torch.complex(torch.cos(theta),
@@ -346,9 +372,7 @@ def _modulated_ref_spectra(ref: torch.Tensor, n: int, m: int, peek: int,
     f_extra = None if extra is None else fbase[:, nbase:]
     f0, f1 = fbase[:, 0], fbase[:, 1]
     f2 = fbase[:, 2] if order == 2 else None
-    ramp = torch.from_numpy(np.exp(
-        2j * np.pi * np.mod(np.arange(n, dtype=np.float64) * peek / n, 1.0)
-    ).astype(np.complex64)).to(dev)                      # time roll by -peek
+    ramp = _roll_ramp(n, peek, dev)                      # time roll by -peek
     ys = []
     for k, d in zip(ks, deltas):
         # float32-rounded coefficients, as the JAX package forms them
@@ -482,11 +506,16 @@ def _ls_multiple_carry(ref, srv, filter_len, sample_rate, doppler_bins,
     return out
 
 
-def _pair_index(nb: int):
+@functools.cache
+def _pair_index(nb: int, device: torch.device):
     """The ordered bin pairs a (earlier) → b (later), and their index
-    arrays."""
+    tensors on ``device``."""
     pairs = [(a, b) for b in range(nb) for a in range(b)]
-    return (pairs, [p[0] for p in pairs], [p[1] for p in pairs])
+    return (pairs,
+            torch.tensor([p[0] for p in pairs], dtype=torch.long,
+                         device=device),
+            torch.tensor([p[1] for p in pairs], dtype=torch.long,
+                         device=device))
 
 
 def _ls_multiple_coupled(ref, srv, filter_len, sample_rate, doppler_bins,
@@ -513,7 +542,7 @@ def _ls_multiple_coupled(ref, srv, filter_len, sample_rate, doppler_bins,
 
     # rows: autocorrelations q_bb, cc0 f_srv·conj(f_rs_b), then G_ab and
     # G_ba for a < b
-    pairs, ai, bi = _pair_index(nb)
+    pairs, ai, bi = _pair_index(nb, ref.device)
     rows = [f_rs_all * f_rs_all.conj(), f_srv[:, None] * f_rs_all.conj()]
     if pairs:
         q_pair = f_rs_all[:, ai] * f_rs_all[:, bi].conj()
@@ -613,7 +642,7 @@ def _ls_multiple_segment(ref, srv, filter_len, sample_rate, doppler_bins,
     diag = torch.arange(nb, device=ref.device)
     ac_all = _guard(gpos[:, diag, diag])
 
-    pairs, ai, bi = _pair_index(nb)
+    pairs, ai, bi = _pair_index(nb, ref.device)
     m_pair = None
     if pairs:
         # v[d + m−1] = G_ab[d], G_ab[−u] = conj(G_ba[u])

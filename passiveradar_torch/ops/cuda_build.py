@@ -22,7 +22,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mix_regroup", "nlms", "fft_fused", "tracker")
+SOURCES = ("mix_regroup", "nlms", "fft_fused", "tracker", "levinson")
 # nvcc flags of one source beyond the common ones: the tracker step's gates
 # must round as the plain version's separate products and sums do
 FLAGS = {"tracker": ("-fmad=false",)}

@@ -29,6 +29,20 @@ def _phase_tables(c: float, n: int):
     return coarse, fine
 
 
+@functools.cache
+def _device_phase_tables(c: float, n: int, device: torch.device):
+    """``_phase_tables`` on ``device``, kept (unbounded: a replayed CUDA
+    graph reads them by address, ops/clutter_graph.py)."""
+    return tuple(torch.from_numpy(t).to(device) for t in _phase_tables(c, n))
+
+
+@functools.cache
+def _scalar_phase(value: float, device: torch.device) -> torch.Tensor:
+    """A scalar starting phase as a float32 tensor on ``device``, made
+    once: no host copy per call."""
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
 def phase_rotor(phase: torch.Tensor) -> torch.Tensor:
     """e^{j·phase} as complex64 from float32 radians."""
     ph = phase.float()
@@ -44,11 +58,13 @@ def frequency_shift(x: torch.Tensor, fc: float, fs: float,
     ``x * exp(j*2π*fc*n/Fs + j*phase_offset)`` (signal_utils.py:24-27).
     """
     n = x.shape[-1]
-    coarse_np, fine_np = _phase_tables(float(fc) / float(fs), n)
-    osc_c = torch.from_numpy(coarse_np).to(x.device)
-    osc_f = torch.from_numpy(fine_np).to(x.device)
+    osc_c, osc_f = _device_phase_tables(float(fc) / float(fs), n, x.device)
     osc = (osc_c[:, None] * osc_f[None, :]).reshape(-1)[:n]
-    ph = torch.as_tensor(phase_offset, dtype=torch.float32, device=x.device)
+    if isinstance(phase_offset, (int, float)):
+        ph = _scalar_phase(float(phase_offset), x.device)
+    else:
+        ph = torch.as_tensor(phase_offset, dtype=torch.float32,
+                             device=x.device)
     return x.to(torch.complex64) * osc * phase_rotor(ph)[..., None]
 
 

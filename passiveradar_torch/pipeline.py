@@ -33,7 +33,7 @@ from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.io.hdf5 import PrefetchReader
 from passiveradar_torch.ops.caf import fast_xambg, resolve_window
-from passiveradar_torch.ops.clutter import ls_filter_multiple
+from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
 from passiveradar_torch.ops.fir import mix_resample_poly_batch
 from passiveradar_torch.ops.mixer import block_phase_offsets
 from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
@@ -86,7 +86,8 @@ def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
     such as a zero margin frame, gives a NaN frame), 'nlms_pallas' (NLMS
     with the JAX Pallas kernel's guard: an all-zero window leaves the taps
     unchanged), or 'none'. Both NLMS methods run the whole batch in one
-    launch of the NLMS kernel.
+    launch of the NLMS kernel; on the card the LS stage is a replayed CUDA
+    graph (ops/clutter_graph.py), one a device and batch shape.
     """
     method = cfg.clutter_method
     if method == "none":
@@ -97,9 +98,10 @@ def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
             zero_window="nan" if method == "nlms" else "zero")
     if method != "ls_multiple":
         raise ValueError(f"unknown clutter_method {method!r}")
-    return ls_filter_multiple(ref, srv, cfg.num_range_cells,
-                              cfg.IF_sample_rate, cfg.clutter_doppler_bins,
-                              impl=cfg.clutter_impl, solver=cfg.clutter_solver)
+    return ls_filter_multiple_graphed(
+        ref, srv, cfg.num_range_cells, cfg.IF_sample_rate,
+        cfg.clutter_doppler_bins, impl=cfg.clutter_impl,
+        solver=cfg.clutter_solver)
 
 
 @functools.lru_cache(maxsize=8)

@@ -36,7 +36,7 @@ from passiveradar_torch.detect.trackers import _slot, init_tracks, \
 from passiveradar_torch.ops.caf import fast_xambg, resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.channelizer import channelize, channelize_pair
-from passiveradar_torch.ops.clutter import ls_filter_multiple
+from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
 from passiveradar_torch.ops.util import as_complex, to_host_complex
 from passiveradar_torch.pipeline import _as_tensor, _window_tensor
 from passiveradar_torch.streaming import DETAILS, StreamResult, \
@@ -64,7 +64,8 @@ def process_wideband_frame(ref, srv, n_channels: int, range_bins: int,
     win = resolve_window(window, usable)
     if isinstance(win, np.ndarray):
         win = torch.from_numpy(win).to(refc.device)
-    clean = ls_filter_multiple(refc, srvc, filter_len, ch_rate, doppler_bins)
+    clean = ls_filter_multiple_graphed(refc, srvc, filter_len, ch_rate,
+                                       doppler_bins)
     return fast_xambg(refc, clean, range_bins, freq_bins, window=win)
 
 
@@ -114,9 +115,11 @@ def channel_clean(refc: torch.Tensor, srvc: torch.Tensor,
                   cfg: RadarConfig) -> torch.Tensor:
     """The per-channel LS clutter canceller over a (B, cpi_samples) batch of
     channels (the JAX package's default impl and solver, whatever
-    cfg.clutter_method says, as there)."""
-    return ls_filter_multiple(refc, srvc, cfg.num_range_cells,
-                              cfg.IF_sample_rate, cfg.clutter_doppler_bins)
+    cfg.clutter_method says, as there); a replayed CUDA graph on the card
+    (ops/clutter_graph.py)."""
+    return ls_filter_multiple_graphed(refc, srvc, cfg.num_range_cells,
+                                      cfg.IF_sample_rate,
+                                      cfg.clutter_doppler_bins)
 
 
 def channel_caf(refc: torch.Tensor, clean: torch.Tensor,

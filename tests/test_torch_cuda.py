@@ -849,3 +849,123 @@ def test_tracker_step_makes_no_host_sync(cuda):
     assert got["status"].shape == (8, 10) and got_one["status"].shape == (10,)
     _assert_tracker_tables(tt.to_host(tt._slot(got, 3)), tt.to_host(got_one))
     assert (tt.to_host(table)["status"] == 0).all()
+
+
+def _autocorr_systems(rng, systems, m, n=4096):
+    """(systems, m) complex64 first columns: autocorrelation lags of noise
+    plus a delayed copy, the first system all zero after the stage's
+    guard (c[0] = 1e-25)."""
+    out = np.zeros((systems, m), np.complex64)
+    for b in range(1, systems):
+        s = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        s = s + 0.5 * np.roll(s, 1 + b % 40)
+        spec = np.fft.fft(s, 2 * n)
+        out[b] = np.fft.ifft(spec * spec.conj())[:m]
+    out[0, 0] = np.float32(1e-25)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 33, 185, 210, 360, 600])
+def test_levinson_kernel_matches_plain(cuda, m):
+    """The Levinson kernel against its plain loop on the same card
+    tensors: m = 185 (FM), 210 (the wideband band), 360 (bench_scaling's
+    400 km), 33, 1, and 600 (a in shared memory); 50 systems, one of them
+    the guarded zero system, at tests/test_torch_ops.py's 1e-4."""
+    from passiveradar_torch.ops import levinson_kernel as lk
+    c = torch.from_numpy(_autocorr_systems(np.random.default_rng(m), 50,
+                                           m)).to(cuda)
+    before = lk.levinson_first_col_kernel.launches
+    got = lk.levinson_first_col_kernel(c)
+    assert lk.levinson_first_col_kernel.launches == before + 1
+    want = lk.levinson_first_col_plain(c)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+    assert (got[1:] - want[1:]).abs().max().item() <= \
+        1e-4 * want[1:].abs().max().item()
+    assert got[0, 0].real.item() == want[0, 0].real.item()
+
+
+@pytest.mark.cuda
+def test_levinson_kernel_refuses_above_its_order(cuda):
+    """An order above what one warp's shared memory holds raises
+    ValueError naming the limit, and launches nothing."""
+    from passiveradar_torch.ops import levinson_kernel as lk
+    c = torch.zeros((2, lk.MAX_ORDER + 1), dtype=torch.complex64,
+                    device=cuda)
+    before = lk.levinson_first_col_kernel.launches
+    with pytest.raises(ValueError, match=str(lk.MAX_ORDER)):
+        lk.levinson_first_col_kernel(c)
+    assert lk.levinson_first_col_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", _IMPLS)
+@pytest.mark.parametrize("solver", _SOLVERS)
+def test_graphed_stage_matches_eager(cuda, impl, solver):
+    """The graphed LS stage on the card against the eager one, on the
+    inputs of test_ls_filter_multiple_impls_card_match_cpu with its zero
+    frame: the first call (warm-up, then capture) and two replays bit-equal
+    to the eager stage; the Levinson kernel's counter counts each replay's
+    launch."""
+    from passiveradar_torch.ops import clutter_graph as cg
+    from passiveradar_torch.ops import levinson_kernel as lk
+    rng = np.random.default_rng(5)
+    n, flen, fs = 4096, 16, 4096 / 0.9998442
+    ref = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+           ).astype(np.complex64)
+    srv = (np.roll(ref, 2, axis=-1) + 0.05 * (
+        rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n)))
+    ).astype(np.complex64)
+    ref[1] = srv[1] = 0
+    bins = (0, 1, -1, 2, -2)
+    r = torch.from_numpy(ref).to(cuda)
+    s = torch.from_numpy(srv).to(cuda)
+    want = ls_filter_multiple(r, s, flen, fs, bins, solver=solver,
+                              impl=impl)
+    per_call = 0 if solver == "cholesky" else 1
+    graphed = [cg.ls_filter_multiple_graphed(r, s, flen, fs, bins,
+                                             solver=solver, impl=impl)]
+    before = lk.levinson_first_col_kernel.launches
+    for _ in range(2):
+        graphed.append(cg.ls_filter_multiple_graphed(r, s, flen, fs, bins,
+                                                     solver=solver,
+                                                     impl=impl))
+    torch.cuda.synchronize()
+    assert lk.levinson_first_col_kernel.launches == before + 2 * per_call
+    entry = cg._graphs[cuda.index][cg.graph_key(r, s, flen, fs, bins,
+                                                 solver, impl)]
+    assert entry.replays >= 2
+    assert entry.launches.get("levinson_first_col", 0) == per_call
+    for got in graphed:
+        assert torch.equal(got, want)
+    assert graphed[1].data_ptr() != graphed[2].data_ptr()
+
+
+@pytest.mark.cuda
+def test_graphed_stage_replays_without_host_sync(cuda):
+    """Once captured, the FM-shaped stage (carry, levinson; 2 frames of
+    2^16 samples) replays under torch.cuda.set_sync_debug_mode("error"),
+    as the eager stage runs there once its tables are made; the replay
+    equals the eager result."""
+    from passiveradar_torch.ops import clutter_graph as cg
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n = 65536
+    ref = torch.randn((2, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    srv = 0.3 * torch.roll(ref, 7, dims=1) + 0.1 * torch.randn(
+        (2, n), dtype=torch.complex64, generator=gen, device=cuda)
+    args = (ref, srv, 175, float(n) / 1.0, (0, 1, -1, 2, -2))
+    cg.ls_filter_multiple_graphed(*args)              # warm-up and capture
+    eager = ls_filter_multiple(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = ls_filter_multiple(*args)
+        got = cg.ls_filter_multiple_graphed(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager) and torch.equal(again, eager)
