@@ -82,7 +82,20 @@ Phases, one JSON line each; any failure exits non-zero:
    against the eager stage for the FM batch, one stream frame and a
    wideband batch (ms in turns, bit-equality, peak memory, the graph's pool
    and capture seconds), and the FM stage eager on the plain Levinson
-   loop, eager on the kernel and graphed, in turns and traced;
+   loop, eager on the kernel and graphed, in turns and traced; then
+   (``batch_graph``) the whole FM batch as one replayed CUDA graph
+   (pipeline.process_frames) for LS on cuFFT and on the fused FFT,
+   nlms_pallas and segment + the flattop CAF, int16 and float32 input:
+   each replay bit-equal to the eager chain on the card, ms a batch eager,
+   with the LS stage graphed and as a batch graph in turns, a bare
+   replay's ms, one traced replay (device kernels, idle share), the pool,
+   warm-up and capture seconds and the launches of a replay; then
+   (``run_capture_trace``) two consecutive batches dispatched from pinned
+   buffers as the earlier loop did (phases by a blocking copy, the eager
+   chain) and as run_capture does now, in turns:
+   whether batch 0 still ran when batch 1 had been enqueued, host enqueue
+   and wall ms, traced; the steady state above times the batch graph
+   beside the eager stages in turns;
 9. cancellers: the steady-state FM batch through every clutter_impl
    (carry, coupled, segment) × clutter_solver (levinson, gs_matrix,
    gs_dense, cholesky), the clutter stage graphed and eager in turns (median
@@ -210,6 +223,7 @@ FUSED_VS_F64 = 1.5
 # (phase_levinson_kernel)
 LEVINSON_VS_F64 = 2.0
 GRAPH_TURNS = 5          # eager, graph, graph, eager: timed runs each x2
+INT16_SCALE = 1.0 / 4096  # the FM batch as int16 samples (phase_batch_graph)
 # the ground-truth cells of the FM capture (Doppler row, range column)
 STRONG_CELL = (432, 153)
 WEAK_CELL = (672, 120)
@@ -1184,7 +1198,7 @@ def phase_clutter_graph(torch, dev, cfg):
     kernel, plain; CUDA events), and one traced call of each: device
     kernels, busy and idle share. The replay must equal the eager stage bit
     for bit."""
-    from passiveradar_torch.ops import clutter
+    from passiveradar_torch.ops import clutter, graphs
     from passiveradar_torch.ops import clutter_graph as cg
 
     _, _, _, r, s = fm_batch(torch, dev, cfg)
@@ -1238,10 +1252,223 @@ def phase_clutter_graph(torch, dev, cfg):
     fm_stage = dict(ms_median={k: float(np.median(v)) for k, v in
                                runs.items()}, ms_runs=runs, traced=traces)
     emit(dict(phase="clutter_graph", impl="carry", solver="levinson",
-              max_graphs=cg.MAX_GRAPHS, fm_stage=fm_stage, **out))
+              graph_budget_bytes=graphs.budget(dev), fm_stage=fm_stage,
+              **out))
     if bad:
         raise AssertionError(f"clutter graph replays differ from eager: "
                              f"{ {k: out[k]['rel_diff_over_peak'] for k in bad} }")
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Bit for bit (NaN frames compare equal to themselves)."""
+    def bits(x):
+        return torch.view_as_real(x).contiguous().view(torch.int32) \
+            if x.is_complex() else x.contiguous().view(torch.int32)
+    return bool(torch.equal(bits(got), bits(want)))
+
+
+def int16_pairs(torch, x):
+    """Float32 IQ pairs as the int16 samples of an SDR capture, read back
+    as x·INT16_SCALE (cfg.int16_scale)."""
+    return torch.round(x / INT16_SCALE).to(torch.int16)
+
+
+def phase_batch_graph(torch, dev, params):
+    """The FM batch (BATCH + 2 frames, int16 and float32 IQ pairs) as one
+    replayed CUDA graph (pipeline.process_frames), for LS on cuFFT and on
+    the fused FFT, nlms_pallas and segment + the flattop CAF: each replay
+    (and the key's first call, its warm-up) bit-equal to the eager chain on
+    the same card, both as it was (the LS stage its own graph) and wholly
+    eager; ms a batch in turns (eager, stage graph, batch graph, batch
+    graph, stage graph, eager; GRAPH_TURNS times, CUDA events), and a bare
+    replay's; the device kernels and idle share of one traced replay; the
+    graph's pool, warm-up and capture seconds; launches a replay from the
+    counters, equal to an eager batch's. Returns the LS cuFFT float32
+    case's row."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.ops import graphs
+
+    cases = (("ls_cufft", {}, False), ("ls_fused", {}, True),
+             ("nlms_pallas", dict(clutter_method="nlms_pallas"), False),
+             ("segment_flattop", dict(clutter_impl="segment",
+                                      caf_short_filt=False), False))
+    rows, bad, main_row = [], [], None
+    for name, over, fused in cases:
+        for dtype in ("int16", "float32"):
+            cfg = derive_config(dict(params, int16_scale=INT16_SCALE, **over)
+                                if dtype == "int16" else dict(params, **over))
+            ref, srv, ph, _, _ = fm_batch(torch, dev, cfg)
+            if dtype == "int16":
+                ref, srv = int16_pairs(torch, ref), int16_pairs(torch, srv)
+            route = fused_fft if fused else contextlib.nullcontext
+            with route():
+                runs = dict(
+                    eager=lambda: pl._process_frames_impl(
+                        ref, srv, ph, cfg, stage_graph=False),
+                    stage_graph=lambda: pl._process_frames_impl(
+                        ref, srv, ph, cfg),
+                    batch_graph=lambda: pl.process_frames(ref, srv, ph,
+                                                          cfg))
+                zero_counts()
+                want = runs["eager"]()
+                torch.cuda.synchronize()
+                eager_counts = read_counts()
+                stage = runs["stage_graph"]()
+                first = runs["batch_graph"]()
+                key = pl.graph_key("frames", dev, (ref, srv, ph), cfg)
+                entry = graphs.lookup(key, dev)
+                got = [runs["batch_graph"]() for _ in range(2)]
+                torch.cuda.synchronize()
+                equal = dict(
+                    first_call=bits_equal(torch, first, want),
+                    replays=all(bits_equal(torch, g, want) for g in got),
+                    stage_graph=bits_equal(torch, stage, want))
+                del first, got, stage
+                ms = dict(eager=[], stage_graph=[], batch_graph=[])
+                for _ in range(GRAPH_TURNS):
+                    for which in ("eager", "stage_graph", "batch_graph",
+                                  "batch_graph", "stage_graph", "eager"):
+                        ev = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                        torch.cuda.synchronize()
+                        ev[0].record()
+                        runs[which]()
+                        ev[1].record()
+                        torch.cuda.synchronize()
+                        ms[which].append(ev[0].elapsed_time(ev[1]))
+                replay_ms = cuda_ms(torch, lambda: graphs.replay(entry), 10)
+                traced = trace(torch, runs["batch_graph"])
+                traced.pop("by_name", None)
+            row = dict(case=name, input_dtype=dtype, clutter_method=(
+                cfg.clutter_method), clutter_impl=cfg.clutter_impl,
+                caf_short_filt=cfg.caf_short_filt, fused_fft=fused,
+                frames=int(ref.shape[0]), bit_equal=equal,
+                ms_median={k: float(np.median(v)) for k, v in ms.items()},
+                ms_runs=ms, replay_only_ms=replay_ms,
+                frames_per_s_batch_graph=BATCH / float(
+                    np.median(ms["batch_graph"])) * 1e3,
+                traced_replay=traced, pool_bytes=entry.pool_bytes,
+                warmup_s=entry.warmup_s, capture_s=entry.capture_s,
+                launches_a_replay=entry.launches,
+                launches_eager_batch={k: v for k, v in eager_counts.items()
+                                      if v})
+            rows.append(row)
+            emit(dict(phase="batch_graph", **row))
+            if not all(equal.values()) or row["launches_a_replay"] != \
+                    row["launches_eager_batch"]:
+                bad.append(f"{name}/{dtype}")
+            if name == "ls_cufft" and dtype == "float32":
+                main_row = row
+            del ref, srv, ph, want
+    emit(dict(phase="graph_cache", budget_bytes=graphs.budget(dev),
+              graphs=graphs.cache_info()))
+    if bad:
+        raise AssertionError(f"batch graph replays differ from the eager "
+                             f"chain or count other launches: {bad}")
+    return main_row
+
+
+class NullWriter:
+    """A map writer that keeps nothing (run_capture's timing)."""
+    frames_done = 0
+
+    def write(self, frames, start):
+        pass
+
+
+def phase_run_capture_trace(torch, dev, params):
+    """Two consecutive FM batches as run_capture dispatches them, from
+    pinned host buffers: as the earlier loop did (the phases copied with a
+    blocking .to(device), then the eager chain) and as it does now (raw,
+    phases and maps through pinned buffers straight into and out of the
+    batch graph), in turns (before, after, after, before; 3 times): each
+    batch's host enqueue ms, whether batch 0's device work was still
+    running when batch 1 had been enqueued (its event not yet reached: one
+    batch in flight), the two batches' wall ms, and one traced pair each
+    (device kernels, idle share); then run_capture itself over the 16-frame
+    capture, traced."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.config import derive_config
+    from passiveradar_torch.io.hdf5 import CaptureReader
+
+    cfg = derive_config(params)
+    f = BATCH + 2
+    reader = CaptureReader(cfg, estimate_offset=False, device=dev)
+    bufs = []
+    for s0 in (0, FRAMES - f):
+        r, s = reader.read_pair_frames(s0, f)
+        bufs.append(dict(
+            ref=torch.from_numpy(r).pin_memory(),
+            srv=torch.from_numpy(s).pin_memory(),
+            ph=torch.from_numpy(pl.frame_phases(
+                cfg, list(range(s0, s0 + f)))).pin_memory(),
+            out=torch.empty((f, cfg.num_doppler_cells,
+                             cfg.num_range_cells + 1), dtype=torch.complex64,
+                            pin_memory=True)))
+
+    def dispatch(variant, b):
+        if variant == "before":
+            ph = torch.from_numpy(b["ph"].numpy().copy())    # pageable
+            return pl._process_frames_impl(
+                b["ref"].to(dev, non_blocking=True),
+                b["srv"].to(dev, non_blocking=True), ph.to(dev), cfg)
+        return pl._graphed("frames", (b["ref"], b["srv"], b["ph"]), cfg,
+                           device=dev, fresh=False)
+
+    def two(variant):
+        torch.cuda.synchronize()
+        events, host_ms, running = [], [], None
+        t0 = time.perf_counter()
+        for i, b in enumerate(bufs):
+            t = time.perf_counter()
+            b["out"].copy_(dispatch(variant, b), non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            if i:
+                running = not events[0].query()
+            events.append(ev)
+        for ev in events:
+            ev.synchronize()
+        return dict(host_enqueue_ms=host_ms,
+                    batch0_running_after_batch1_enqueued=running,
+                    wall_ms=(time.perf_counter() - t0) * 1e3)
+
+    for variant in ("before", "after"):
+        two(variant)
+    runs = dict(before=[], after=[])
+    for _ in range(3):
+        for variant in ("before", "after", "after", "before"):
+            runs[variant].append(two(variant))
+    maps = {v: [b["out"].clone() for b in bufs] for v in ("before",)}
+    two("after")
+    same = all(torch.equal(a, b["out"]) for a, b in zip(maps["before"], bufs))
+    traced = {}
+    for variant in runs:
+        t = trace(torch, lambda variant=variant: two(variant))
+        t.pop("by_name", None)
+        traced[variant] = t
+    loop = trace(torch, lambda: pl.run_capture(reader, NullWriter(), cfg,
+                                               progress=False, device=dev))
+    loop.pop("by_name", None)
+    reader.close()
+    summary = {v: dict(
+        wall_ms_median=float(np.median([r["wall_ms"] for r in rs])),
+        host_enqueue_ms_median=[float(np.median([r["host_enqueue_ms"][i]
+                                                 for r in rs]))
+                                for i in range(2)],
+        batch0_running_after_batch1_enqueued=[
+            r["batch0_running_after_batch1_enqueued"] for r in rs])
+        for v, rs in runs.items()}
+    emit(dict(phase="run_capture_trace", frames_a_batch=f,
+              order="before, after, after, before; x3", summary=summary,
+              runs=runs, traced_two_batches=traced,
+              maps_equal_before_after=same,
+              run_capture_16_frames_traced=loop))
+    if not same:
+        raise AssertionError("run_capture's batches differ before and "
+                             "after the phases repair")
 
 
 def phase_ls_route_ab(torch, dev, cfg):
@@ -1311,9 +1538,10 @@ def phase_ls_route_ab(torch, dev, cfg):
 
 def push_breakdown(torch, sp, ref, srv, method):
     """Where one push's time goes, on the processor's state after a stream:
-    preprocess + clutter of one frame, its CAF, the CFAR and the tracker
-    step, each timed alone by CUDA events (host launch gaps included), and
-    the tracker step's kernel launches under torch.profiler."""
+    preprocess + clutter of one frame (one graph), its CAF + CFAR graph,
+    the eager CAF and CFAR, and the tracker step, each timed alone by CUDA
+    events (host launch gaps included), and the tracker step's kernel
+    launches under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from passiveradar_torch.detect.trackers import multitarget_step
@@ -1335,8 +1563,19 @@ def push_breakdown(torch, sp, ref, srv, method):
         return multitarget_step(sp._tracks, cf, sp._extent, sp.n_tracks,
                                 cfg.candidate_budget)
 
+    from passiveradar_torch.pipeline import _replayed
+    from passiveradar_torch.streaming import _caf_cfar
+    cfar_kernel = tuple(sp.cfar_kernel)
+
+    def caf_cfar():
+        # the push's CAF + CFAR graph, as StreamingProcessor._finish runs it
+        return _replayed("stream_caf", lambda *a: _caf_cfar(
+            *a, cfg=cfg, window=sp._window, cfar_kernel=cfar_kernel),
+            (z, r, z, z, s, z), cfg, cfar_kernel)
+
     ms = dict(
         clean=cuda_ms(torch, lambda: sp._clean(ref, srv), 5, warmup=1),
+        caf_cfar_graph=cuda_ms(torch, caf_cfar, 5, warmup=1),
         caf=cuda_ms(torch, lambda: fast_xambg(
             r_in, s_in, cfg.num_range_cells, cfg.num_doppler_cells,
             window=sp._window), 5, warmup=1),
@@ -2610,17 +2849,27 @@ def phase_hdf5(torch, params, cfg):
 
 
 def phase_steady(torch, dev, cfg):
+    """The steady-state FM batch (BATCH + 2 frames, device-resident): what
+    run_capture runs now, the batch graph (pipeline.process_frames), and
+    beside it the eager chain by stage (the LS stage its own graph, as in
+    the eager chain of process_frames' warm-up), in turns (stages, graph,
+    graph, stages), STEADY_RUNS each, CUDA events; peak memory of the
+    eager chain; the graph pools kept; then one traced eager batch and the
+    preprocess stage alone."""
     from passiveradar_torch import pipeline as pl
-    from passiveradar_torch.ops import clutter_graph as cg
+    from passiveradar_torch.ops import graphs
 
     f = BATCH + 2
     ref, srv, ph, _, _ = fm_batch(torch, dev, cfg)
     for _ in range(2):
         pl._process_frames_impl(ref, srv, ph, cfg)
+        pl.process_frames(ref, srv, ph, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stages = dict(preprocess=[], clutter=[], caf=[], total=[])
-    for _ in range(STEADY_RUNS):
+    graph = []
+
+    def by_stage():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         r = pl._preprocess_impl(ref, ph, cfg)
@@ -2635,24 +2884,40 @@ def phase_steady(torch, dev, cfg):
         stages["clutter"].append(ev[1].elapsed_time(ev[2]))
         stages["caf"].append(ev[2].elapsed_time(ev[3]))
         stages["total"].append(ev[0].elapsed_time(ev[3]))
+        return maps
+
+    def graphed():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        maps = pl.process_frames(ref, srv, ph, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        graph.append(ev[0].elapsed_time(ev[1]))
+        return maps
+
+    for i in range(STEADY_RUNS):
+        for fn in ((by_stage, graphed) if i % 2 == 0 else
+                   (graphed, by_stage)):
+            maps = fn()
     if tuple(maps.shape) != (f, cfg.num_doppler_cells,
                              cfg.num_range_cells + 1):
         raise AssertionError(f"steady-state maps {tuple(maps.shape)}")
-    ms = float(np.median(stages["total"]))
+    ms = float(np.median(graph))
     emit(dict(phase="steady_state", clutter_method=cfg.clutter_method,
               buffer_frames=f, valid_frames=BATCH,
-              runs=STEADY_RUNS, ms_per_batch_median=ms,
-              frames_per_s=BATCH / ms * 1e3,
+              runs=STEADY_RUNS, order="stages, graph, graph, stages",
+              ms_per_batch_median=ms, frames_per_s=BATCH / ms * 1e3,
+              ms_per_batch_runs=graph,
+              eager_ms_per_batch_median=float(np.median(stages["total"])),
               stage_ms_median={k: float(np.median(v))
                                for k, v in stages.items()},
               stage_ms_runs=stages,
               max_memory_allocated=torch.cuda.max_memory_allocated(),
-              # a replay allocates only its output: the clutter graphs'
-              # private pools are reserved memory
+              # a replay allocates only its output: the graphs' private
+              # pools are reserved memory
               memory_reserved=torch.cuda.memory_reserved(),
-              clutter_graph_pools={f"{g['shape']} {g['impl']}/{g['solver']}"
-                                   f"{' fused' if g['fused_fft'] else ''}":
-                                   g["pool_bytes"] for g in cg.cache_info()}))
+              graph_pools={f"{g['kind']} {g['key']}": g["pool_bytes"]
+                           for g in graphs.cache_info()}))
     profile_batch(torch, pl, ref, srv, ph, cfg)
 
 
@@ -3045,7 +3310,8 @@ def phase_sharded(torch, dev, params):
     cuda:0] and, with more than one card, of every card, for the LS
     canceller and for nlms_pallas: the maps against process_frames on
     cuda:0, the halo exchanges and the kernels' launches of one call
-    (counts set to 0 just before it), and ms a batch against one device,
+    (counts set to 0 just before it; each shard's two graphs captured on
+    its first call), and ms a batch against one device (its batch graph),
     median of SHARD_RUNS, the two run in turns. Returns the launches of the
     two-shard call of each method."""
     from passiveradar_torch import pipeline as pl
@@ -3091,7 +3357,7 @@ def phase_sharded(torch, dev, params):
             times = dict(one_device=[], sharded=[])
             for which in ("one_device", "sharded", "sharded", "one_device") \
                     * ((SHARD_RUNS + 1) // 2):
-                fn = (lambda: pl._process_frames_impl(ref, srv, ph, cfg)) \
+                fn = (lambda: pl.process_frames(ref, srv, ph, cfg)) \
                     if which == "one_device" else \
                     (lambda: pl.process_frames_shmap(ref, srv, ph, cfg, mesh))
                 if len(times[which]) < SHARD_RUNS:
@@ -3185,7 +3451,36 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
     group_diff = max(float(torch.max(torch.abs(
         got[g] - pl._process_frames_impl(refs[g], srvs[g], phs[g], cfg))))
         for g in range(2))
-    del got, refs, srvs, phs
+    # one graph of G = 2 batches against two G = 1 replays, in turns: the
+    # calls (inputs copied in, maps cloned out) and the bare replays
+    from passiveradar_torch.ops import graphs
+    singles = [(refs[g], srvs[g], phs[g]) for g in range(2)]
+    for x in singles:
+        pl.process_frames(*x, cfg)
+    pl.process_frames_groups(refs, srvs, phs, cfg, device=dev)
+    one_entry = graphs.lookup(pl.graph_key("frames", dev, singles[0], cfg),
+                              dev)
+    two_entry = graphs.lookup(pl.graph_key("groups", dev, (refs, srvs, phs),
+                                           cfg), dev)
+    fns = dict(
+        g1_calls_twice=lambda: [pl.process_frames(*x, cfg) for x in singles],
+        g2_call=lambda: pl.process_frames_groups(refs, srvs, phs, cfg,
+                                                 device=dev),
+        g1_replays_twice=lambda: [graphs.replay(one_entry) for _ in range(2)],
+        g2_replay=lambda: graphs.replay(two_entry))
+    group_ms = {k: [] for k in fns}
+    for _ in range(GRAPH_TURNS):
+        for pair in (("g1_calls_twice", "g2_call"),
+                     ("g1_replays_twice", "g2_replay")):
+            for which in pair + pair[::-1]:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                fns[which]()
+                ev[1].record()
+                torch.cuda.synchronize()
+                group_ms[which].append(ev[0].elapsed_time(ev[1]))
+    del got, refs, srvs, phs, singles, fns
     emit(dict(phase="dispatch_groups", frames=FRAMES, batch_frames=BATCH,
               runs=runs,
               wall_frames_per_s_median={
@@ -3193,7 +3488,11 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
                                       if r["groups"] == g])) for g in (1, 2)},
               process_frames_groups=dict(
                   groups=2, frames=f, max_abs_diff_vs_process_frames=group_diff,
-                  launches=group_counts)))
+                  launches=group_counts,
+                  order="G = 1 twice, G = 2, G = 2, G = 1 twice; x5",
+                  ms_median={k: float(np.median(v))
+                             for k, v in group_ms.items()},
+                  ms_runs=group_ms)))
     if group_diff != 0 or group_counts != dict(
             mix_regroup_matmul=4, nlms_filter_pallas=0, fft_fused=0,
             multitarget_step=0, levinson_first_col=2):
@@ -3727,10 +4026,12 @@ def phase_native():
 def phase_batch_sweep(torch, dev, params):
     """process_frames at SWEEP_WIDTHS frames a batch (+ 2 halo frames) for
     ls_multiple and nlms_pallas, on two device-resident FM captures from
-    synth_capture_device (seeds 7 and 8, taken in alternate runs): each
-    width's maps of the frames it shares with the BATCH-frame batch
-    (frames 1..BATCH) within SWEEP_TOL of the peak, argmax equal; launches
-    and peak memory of one call (counts set to 0 just before it); then
+    synth_capture_device (seeds 7 and 8, taken in alternate runs), each
+    width its batch graph: each width's maps of the frames it shares with
+    the BATCH-frame batch (frames 1..BATCH) within SWEEP_TOL of the peak,
+    argmax equal; peak memory of the width's first call (its eager warm-up
+    and its capture) and the launches of a replay (counts set to 0 just
+    before it); then
     SWEEP_RUNS timed runs of every width (CUDA events), the widths in
     turns. The largest width's footprint is reckoned from the BATCH run's
     and printed before it runs. Returns each method and width's counts."""
@@ -3755,8 +4056,8 @@ def phase_batch_sweep(torch, dev, params):
 
         def run(f, cap=0):
             ref, srv = caps[cap]
-            return pl._process_frames_impl(ref[:f + 2], srv[:f + 2],
-                                           ph[:f + 2], mcfg)
+            return pl.process_frames(ref[:f + 2], srv[:f + 2], ph[:f + 2],
+                                     mcfg)
 
         maps0, peaks, counts = None, {}, {}
         for f in sorted(SWEEP_WIDTHS):
@@ -3768,14 +4069,15 @@ def phase_batch_sweep(torch, dev, params):
                           working_bytes_per_frame=per_frame,
                           reckoned_peak_bytes=resident + per_frame * (f + 2),
                           device_bytes=total))
-            run(f)                                  # warm this width
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            run(f)                  # this width's graph: warm-up, capture
+            torch.cuda.synchronize()
+            peaks[f] = torch.cuda.max_memory_allocated()
             zero_counts()
             maps = run(f)
             torch.cuda.synchronize()
             counts[f] = read_counts()
-            peaks[f] = torch.cuda.max_memory_allocated()
             shared = maps[1:BATCH + 1].cpu().numpy()
             if f == BATCH:
                 maps0 = shared
@@ -3938,6 +4240,8 @@ def main() -> int:
         phase_steady(torch, dev, cfg)
         phase_ls_route_ab(torch, dev, cfg)
         phase_clutter_graph(torch, dev, cfg)
+        phase_batch_graph(torch, dev, params)
+        phase_run_capture_trace(torch, dev, params)
         phase_steady(torch, dev,
                      derive_config(dict(params, clutter_method="nlms_pallas")))
         phase_cancellers(torch, dev, params)

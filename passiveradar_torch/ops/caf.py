@@ -15,6 +15,8 @@ segment: three batched FFTs over all segments, then the Doppler FFT.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from scipy import signal as _spsignal
@@ -35,6 +37,27 @@ def resolve_window(window, n: int):
     if isinstance(window, np.ndarray):
         return window.astype(np.float32)
     return window
+
+
+@functools.cache
+def _window_on(spec, n: int, device: torch.device) -> torch.Tensor:
+    if isinstance(spec, bytes):
+        win = np.frombuffer(spec, np.float32).copy()
+    else:
+        win = resolve_window(spec, n)
+    return torch.from_numpy(win).to(device)
+
+
+def device_window(window, n: int, device: torch.device):
+    """``resolve_window(window, n)`` on ``device``: None, a tensor as it is,
+    a spec or a numpy window made once per (window, n, device) and kept
+    (unbounded: a replayed CUDA graph reads it by address, ops/graphs.py),
+    so no call copies it from the host."""
+    if window is None or torch.is_tensor(window):
+        return window
+    if isinstance(window, np.ndarray):
+        window = np.ascontiguousarray(window, np.float32).tobytes()
+    return _window_on(window, int(n), torch.device(device))
 
 
 def _caf_segment_tables(ref: torch.Tensor, srv: torch.Tensor, window,
@@ -114,6 +137,19 @@ def _flattop_blocks(taps: np.ndarray, d: int):
     return hz.reshape(c, d).astype(np.float32), pl
 
 
+@functools.cache
+def _flattop_taps(d: int) -> np.ndarray:
+    """The reference's flattop Doppler decimator for factor d (10·d+1
+    taps), designed once."""
+    return design_lowpass(10 * d + 1, 1.0 / d, "flattop")
+
+
+@functools.cache
+def _blocks_on(taps: bytes, d: int, device: torch.device) -> tuple:
+    blocks, pl = _flattop_blocks(np.frombuffer(taps, np.float64), d)
+    return torch.from_numpy(blocks).to(device), pl
+
+
 def _fast_xambg_general(ref: torch.Tensor, srv: torch.Tensor, window,
                         taps: np.ndarray, range_bins: int,
                         freq_bins: int) -> torch.Tensor:
@@ -132,8 +168,10 @@ def _fast_xambg_general(ref: torch.Tensor, srv: torch.Tensor, window,
     b, n = ref.shape
     nf, r = freq_bins, range_bins
     d = n // nf
-    blocks, pl = _flattop_blocks(taps, d)
-    nc = blocks.shape[0]
+    # made once per (taps, d, device): no host copy per call
+    bk, pl = _blocks_on(np.ascontiguousarray(taps, np.float64).tobytes(), d,
+                        ref.device)
+    nc = bk.shape[0]
     rows = nf + nc - 1
     a = ref if window is None else ref * window
     # ap[u] = a[u − pl], zero outside; d-rows s = 0..rows−1
@@ -146,7 +184,6 @@ def _fast_xambg_general(ref: torch.Tensor, srv: torch.Tensor, window,
     s_win = ext.unfold(-1, d + r, d)[:, :rows]         # (B, rows, d + R)
     fft_len = nextpow2(d + r + 1)
     fs_ = fft_auto(s_win, fft_len)
-    bk = torch.from_numpy(blocks).to(ref.device)
     acc = None
     for c in range(nc):
         fa_ = fft_auto((aa[:, c:c + nf] * bk[c]).conj(), fft_len)
@@ -178,9 +215,7 @@ def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
         raise ValueError(f"input length {n} not divisible by freq_bins "
                          f"{freq_bins}")
     d = n // freq_bins
-    win = resolve_window(window, n)
-    if isinstance(win, np.ndarray):
-        win = torch.from_numpy(win).to(ref.device)
+    win = device_window(window, n, ref.device)
     if short_filt:
         if d % 2:
             raise ValueError("segment CAF path requires an even decimation "
@@ -192,8 +227,8 @@ def fast_xambg(ref: torch.Tensor, srv: torch.Tensor, range_bins: int,
                                                int(range_bins),
                                                int(freq_bins)))
     else:
-        taps = design_lowpass(10 * d + 1, 1.0 / d, "flattop")
-        out = _fast_xambg_general(ref, srv, win, taps, int(range_bins),
+        out = _fast_xambg_general(ref, srv, win, _flattop_taps(d),
+                                  int(range_bins),
                                   int(freq_bins))
     return out[0] if single else out
 

@@ -28,9 +28,9 @@ import torch
 from scipy import signal as _spsignal
 
 from passiveradar_torch._device import on_device
+from passiveradar_torch.ops import resample_kernel
 from passiveradar_torch.ops.mixer import frequency_shift, phase_rotor
-from passiveradar_torch.ops.resample_kernel import (mix_regroup_matmul,
-                                                   pack_bank)
+from passiveradar_torch.ops.resample_kernel import pack_bank
 from passiveradar_torch.ops.util import as_complex, iq_pairs
 
 
@@ -128,6 +128,17 @@ def _resample_design(n_in: int, up: int, down: int, window):
     return h_pad, n_pre_remove, n_out
 
 
+@functools.lru_cache(maxsize=64)
+def _resample_taps(n_in: int, up: int, down: int, window) -> tuple:
+    """``_resample_design`` for a window given by name (hashable), designed
+    once: (the padded taps' float64 bytes, n_pre_remove, n_out). The main
+    path's design is scipy's firwin over 2,381 Kaiser taps at FM: host time
+    that no batch needs to pay again."""
+    h_pad, n_pre_remove, n_out = _resample_design(n_in, up, down, window)
+    return (np.ascontiguousarray(h_pad, np.float64).tobytes(), n_pre_remove,
+            n_out)
+
+
 def resample_poly(x: torch.Tensor, up: int, down: int,
                   window=("kaiser", 5.0), padtype: str = "constant"):
     """Rational polyphase resampling along the last axis, matching
@@ -221,12 +232,13 @@ def _mix_resample_static(h_bytes: bytes, up: int, down: int, c: float,
                 shift=shift, n_out_plain=n_out_plain)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _static_tensors(h_bytes: bytes, up: int, down: int, c: float, n_in: int,
                     mode: str, device: torch.device):
     """The device-resident operands of ``_mix_resample_static``, the bank
     packed for the kernel (``pack_bank``: its taps, phase table and real
-    factors)."""
+    factors). Kept (unbounded: a replayed CUDA graph reads them by
+    address, ops/graphs.py)."""
     st = _mix_resample_static(h_bytes, up, down, c, n_in, mode)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     corr = None
@@ -257,14 +269,21 @@ def mix_resample_poly_batch(x: torch.Tensor, phases, fc: float, fs: float,
         return frequency_shift(as_complex(x), fc, fs, ph)
     pairs = iq_pairs(x)
     f, n_in = pairs.shape[0], pairs.shape[1]
-    h_pad, n_pre_remove, n_out = _resample_design(n_in, upr, downr, window)
-    h_bytes = np.ascontiguousarray(h_pad, np.float64).tobytes()
+    if isinstance(window, (str, tuple)):
+        h_bytes, n_pre_remove, n_out = _resample_taps(n_in, upr, downr,
+                                                      window)
+    else:
+        h_pad, n_pre_remove, n_out = _resample_design(n_in, upr, downr,
+                                                      window)
+        h_bytes = np.ascontiguousarray(h_pad, np.float64).tobytes()
     c = float(fc) / float(fs)
     st = _mix_resample_static(h_bytes, upr, downr, c, n_in, padtype)
     dt = _static_tensors(h_bytes, upr, downr, c, n_in, padtype, x.device)
     groups = st["groups"]
-    o = mix_regroup_matmul(pairs, dt["bank"], downr, groups, upr,
-                           pad_left=st["pad_l"] + st["ext"])
+    # looked up at call time: the key of a replayed batch graph holds it
+    o = resample_kernel.mix_regroup_matmul(pairs, dt["bank"], downr, groups,
+                                           upr,
+                                           pad_left=st["pad_l"] + st["ext"])
     flat = (o * dt["fg"][None, :, None]).reshape(f, groups * upr)
     if dt["corr"] is not None:
         tl, t_r0, c1l, c2l, c1r, c2r = dt["corr"]

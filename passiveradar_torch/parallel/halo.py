@@ -11,7 +11,8 @@ neighbour exchange:
 * ``overlap_frames``: the whole (F, C) array on one device;
 * ``local_overlap``: the per-shard blocks, each shard's edge halos copied
   from its neighbours' blocks onto its own device (the JAX package's two
-  ``lax.ppermute``s, one a direction);
+  ``lax.ppermute``s, one a direction): ``exchange_edges``, then
+  ``with_halo`` on each shard;
 * ``overlap_frames_shmap``: split, exchange, concatenate.
 
 All three are bit-identical (tested).
@@ -34,13 +35,19 @@ def overlap_frames(x: torch.Tensor, depth: int) -> torch.Tensor:
 def local_overlap(blocks, depth: int) -> list:
     """The halo over per-shard blocks: ``blocks`` are the (f_local, C)
     blocks of the frame axis in frame order, each on its shard's device;
-    returns their (f_local, C + 2·depth) blocks, each on its own device.
+    returns their (f_local, C + 2·depth) blocks, each on its own device:
+    ``with_halo`` of each block and its ``exchange_edges``."""
+    return [with_halo(x, *edges)
+            for x, edges in zip(blocks, exchange_edges(blocks, depth))]
 
-    The tail of each block's last frame goes to the next shard and the head
-    of its first frame to the previous one (``non_blocking`` copies); the
-    capture edges get zeros. ``local_overlap.exchanges`` counts one
-    exchange a direction a call, as the JAX package's one ppermute a
-    direction."""
+
+def exchange_edges(blocks, depth: int) -> list:
+    """The exchange of ``local_overlap``: for each block, the (1, depth)
+    halos (from_left, from_right) on its device. The tail of each block's
+    last frame goes to the next shard and the head of its first frame to
+    the previous one (``non_blocking`` copies); the capture edges get
+    zeros. ``local_overlap.exchanges`` counts one exchange a direction a
+    call, as the JAX package's one ppermute a direction."""
     n = len(blocks)
     tails = [b[-1:, -depth:] for b in blocks]
     heads = [b[:1, :depth] for b in blocks]
@@ -52,10 +59,18 @@ def local_overlap(blocks, depth: int) -> list:
             if i > 0 else z
         from_right = heads[i + 1].to(xl.device, non_blocking=True) \
             if i < n - 1 else z
-        left = torch.cat([from_left, xl[:-1, -depth:]], dim=0)
-        right = torch.cat([xl[1:, :depth], from_right], dim=0)
-        out.append(torch.cat([left, xl, right], dim=1))
+        out.append((from_left, from_right))
     return out
+
+
+def with_halo(x: torch.Tensor, from_left: torch.Tensor,
+              from_right: torch.Tensor) -> torch.Tensor:
+    """One shard's (f_local, C) block → (f_local, C + 2·depth), given the
+    (1, depth) halos that ``exchange_edges`` brought it."""
+    depth = from_left.shape[1]
+    left = torch.cat([from_left, x[:-1, -depth:]], dim=0)
+    right = torch.cat([x[1:, :depth], from_right], dim=0)
+    return torch.cat([left, x, right], dim=1)
 
 
 local_overlap.exchanges = 0

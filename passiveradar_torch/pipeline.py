@@ -12,13 +12,23 @@ Port of the JAX package's pipeline.py. Per batch of frames:
       → 50% CPI-overlap halo                          (main.py:178-181)
       → windowed fast CAF → range-Doppler frames      (main.py:183-194)
 
+On the card every entry point (``preprocess_batch``, ``caf_batch``,
+``process_frames``, ``process_frames_groups``, each shard of
+``process_frames_shmap``) replays a CUDA graph of its eager chain, one a
+``graph_key`` (ops/graphs.py): the counterparts of the JAX package's
+``_preprocess_jit``, ``_caf_jit``, ``_process_frames_jit`` and
+``_process_frames_groups_jit``. ``clutter_batch`` replays the LS stage's
+graph (ops/clutter_graph.py). CPU tensors run the eager chain.
+
 ``run_capture`` is the host loop: fixed bf+2-frame buffers with a one-frame
-halo margin on each side, pinned host buffers, non-blocking copies both
-ways, and one batch of device work in flight while the host writes the
-previous batch's maps and the prefetch thread reads the next one from disk.
-A batch runs on one device (``process_frames``) or split over the devices
-of a frame mesh (``process_frames_shmap``: the halo is then an exchange
-between shards). ``process_frames_groups`` runs G stacked batches a call.
+halo margin on each side, pinned host buffers (raw, phases, maps) copied
+straight into the batch graph's static inputs and out of its static output
+without waiting, and one batch of device work in flight while the host
+writes the previous batch's maps and the prefetch thread reads the next one
+from disk. A batch runs on one device (``process_frames``) or split over
+the devices of a frame mesh (``process_frames_shmap``: the halo is then an
+exchange between shards). ``process_frames_groups`` runs G stacked batches
+a call.
 """
 
 from __future__ import annotations
@@ -32,14 +42,16 @@ import torch
 from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.io.hdf5 import PrefetchReader
-from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops import (fft_kernel, graphs, levinson_kernel,
+                                    nlms_kernel, resample_kernel)
+from passiveradar_torch.ops.caf import device_window, fast_xambg
+from passiveradar_torch.ops.clutter import ls_filter_multiple
 from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
 from passiveradar_torch.ops.fir import mix_resample_poly_batch
 from passiveradar_torch.ops.mixer import block_phase_offsets
-from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
 from passiveradar_torch.ops.util import deinterleave_batch
-from passiveradar_torch.parallel.halo import local_overlap, overlap_frames, \
-    split_frames
+from passiveradar_torch.parallel.halo import exchange_edges, \
+    overlap_frames, split_frames, with_halo
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -76,8 +88,8 @@ def _preprocess_impl(raw: torch.Tensor, phases: torch.Tensor,
     return resampled[:, :out_len]
 
 
-def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
-                  cfg: RadarConfig) -> torch.Tensor:
+def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor, cfg: RadarConfig,
+                  stage_graph: bool = True) -> torch.Tensor:
     """Clutter cancellation over a frame batch.
 
     cfg.clutter_method selects the canceller: 'ls_multiple' (the reference
@@ -86,36 +98,42 @@ def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
     such as a zero margin frame, gives a NaN frame), 'nlms_pallas' (NLMS
     with the JAX Pallas kernel's guard: an all-zero window leaves the taps
     unchanged), or 'none'. Both NLMS methods run the whole batch in one
-    launch of the NLMS kernel; on the card the LS stage is a replayed CUDA
-    graph (ops/clutter_graph.py), one a device and batch shape.
+    launch of the NLMS kernel. On the card the LS stage is its own replayed
+    CUDA graph (ops/clutter_graph.py) when ``stage_graph``; a function that
+    is itself being captured passes False (a capture cannot start inside
+    another) and runs the eager stage, ``ops/clutter.ls_filter_multiple``.
     """
     method = cfg.clutter_method
     if method == "none":
         return srv
     if method in ("nlms", "nlms_pallas"):
-        return nlms_filter_batch(
+        # looked up at call time: the key of a batch graph holds it
+        return nlms_kernel.nlms_filter_batch(
             ref, srv, cfg.num_range_cells, cfg.nlms_mu,
             zero_window="nan" if method == "nlms" else "zero")
     if method != "ls_multiple":
         raise ValueError(f"unknown clutter_method {method!r}")
-    return ls_filter_multiple_graphed(
-        ref, srv, cfg.num_range_cells, cfg.IF_sample_rate,
-        cfg.clutter_doppler_bins, impl=cfg.clutter_impl,
-        solver=cfg.clutter_solver)
+    stage = ls_filter_multiple_graphed if stage_graph else ls_filter_multiple
+    return stage(ref, srv, cfg.num_range_cells, cfg.IF_sample_rate,
+                 cfg.clutter_doppler_bins, impl=cfg.clutter_impl,
+                 solver=cfg.clutter_solver)
 
 
-@functools.lru_cache(maxsize=8)
-def _window_tensor(spec, n: int, device: torch.device):
-    win = resolve_window(spec, n)
-    return None if win is None else torch.from_numpy(win).to(device)
+def _clean_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
+                phases: torch.Tensor, cfg: RadarConfig,
+                stage_graph: bool = True) -> tuple:
+    """Both channels' preprocess and the clutter stage: (ref, srv_clean),
+    each (F, output_chunk_length) complex64."""
+    ref = _preprocess_impl(raw_ref, phases, cfg)
+    srv = _preprocess_impl(raw_srv, phases, cfg)
+    return ref, _clutter_impl(ref, srv, cfg, stage_graph)
 
 
 def _caf_windowed(ref_ov: torch.Tensor, srv_ov: torch.Tensor,
                   cfg: RadarConfig) -> torch.Tensor:
     """Windowed CAF of already halo-extended frames →
     (F, num_doppler_cells, num_range_cells+1) complex64 maps."""
-    win = _window_tensor(cfg.caf_window, cfg.caf_input_samples,
-                         ref_ov.device)
+    win = device_window(cfg.caf_window, cfg.caf_input_samples, ref_ov.device)
     return fast_xambg(ref_ov, srv_ov, cfg.num_range_cells,
                       cfg.num_doppler_cells, window=win,
                       short_filt=cfg.caf_short_filt)
@@ -131,36 +149,127 @@ def _caf_batch_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
     return _caf_windowed(ref, srv_clean, cfg)
 
 
+def _halo_caf_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
+                   ref_left: torch.Tensor, ref_right: torch.Tensor,
+                   srv_left: torch.Tensor, srv_right: torch.Tensor,
+                   cfg: RadarConfig) -> torch.Tensor:
+    """One shard's CAF: its (f_local, output_chunk_length) blocks extended
+    by the (1, window_overlap) halos its neighbours sent
+    (parallel/halo.exchange_edges)."""
+    return _caf_windowed(with_halo(ref, ref_left, ref_right),
+                         with_halo(srv_clean, srv_left, srv_right), cfg)
+
+
 def _process_frames_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
-                         phases: torch.Tensor,
-                         cfg: RadarConfig) -> torch.Tensor:
-    ref = _preprocess_impl(raw_ref, phases, cfg)
-    srv = _preprocess_impl(raw_srv, phases, cfg)
-    return _caf_batch_impl(ref, _clutter_impl(ref, srv, cfg), cfg)
+                         phases: torch.Tensor, cfg: RadarConfig,
+                         stage_graph: bool = True) -> torch.Tensor:
+    """The eager chain of a batch (the LS stage its own graph on the card
+    when ``stage_graph``)."""
+    return _caf_batch_impl(*_clean_impl(raw_ref, raw_srv, phases, cfg,
+                                        stage_graph), cfg)
+
+
+def _process_groups_impl(raw_refs: torch.Tensor, raw_srvs: torch.Tensor,
+                         phases: torch.Tensor, cfg: RadarConfig,
+                         stage_graph: bool = True) -> torch.Tensor:
+    return torch.stack([_process_frames_impl(r, s, p, cfg, stage_graph)
+                        for r, s, p in zip(raw_refs, raw_srvs, phases)])
+
+
+# ---- the entry points' CUDA graphs (ops/graphs.py) ---------------------------
+# kind → the eager function a graph of that kind captures; inside a capture
+# the LS stage runs eager (no nested capture)
+_RUNS = dict(
+    preprocess=_preprocess_impl,
+    caf=_caf_batch_impl,
+    clean=functools.partial(_clean_impl, stage_graph=False),
+    frames=functools.partial(_process_frames_impl, stage_graph=False),
+    groups=functools.partial(_process_groups_impl, stage_graph=False),
+    halo_caf=_halo_caf_impl)
+
+
+def route() -> tuple:
+    """What the batch chain looks up at call time: the fused-FFT opt-in and
+    the entry functions of the resampler (B1), NLMS (B2), fused-FFT (B3) and
+    Levinson (L1) kernels. A stand-in swapped in for one (a variant build,
+    a reference route) gets its own graphs."""
+    return (fft_kernel.use_fused(), resample_kernel.mix_regroup_matmul,
+            nlms_kernel.nlms_filter_batch, fft_kernel.fft_fused,
+            levinson_kernel.levinson_first_col_kernel)
+
+
+def graph_key(kind: str, device, inputs, cfg: RadarConfig, *extra) -> tuple:
+    """The cache key of an entry point's graph: its kind, the card, the
+    config, each input's shape and dtype (int16 or float32 IQ pairs,
+    complex64, ...), ``extra`` (what else the function takes) and the
+    route. The inputs may lie anywhere: only their shapes and dtypes
+    count."""
+    return (kind, graphs.card(device), cfg,
+            tuple((tuple(x.shape), x.dtype) for x in inputs), extra, route())
+
+
+def _replayed(kind: str, run, inputs: tuple, cfg: RadarConfig, *extra,
+              device=None, fresh: bool = True):
+    """run(*inputs): a replayed CUDA graph on the card (ops/graphs.py), one
+    a ``graph_key``; the eager code on the CPU. ``run`` must capture:
+    ``_RUNS``' functions, or one that calls no graphed stage. With
+    ``device`` the inputs may be pinned host buffers (graphs.call)."""
+    dev = inputs[0].device if device is None else graphs.card(device)
+    if dev.type != "cuda":
+        return run(*inputs)
+    return graphs.call(kind, graph_key(kind, dev, inputs, cfg, *extra),
+                       inputs, run, device=dev, fresh=fresh, info=dict(
+                           entry=kind, shapes=[list(x.shape) for x in inputs],
+                           dtypes=[str(x.dtype) for x in inputs],
+                           clutter_method=cfg.clutter_method,
+                           clutter_impl=cfg.clutter_impl,
+                           clutter_solver=cfg.clutter_solver,
+                           caf_short_filt=cfg.caf_short_filt,
+                           fused_fft=fft_kernel.use_fused()))
+
+
+def _graphed(kind: str, inputs: tuple, cfg: RadarConfig, **kw):
+    """The entry point ``kind`` of ``_RUNS`` through ``_replayed``."""
+    return _replayed(kind, functools.partial(_RUNS[kind], cfg=cfg), inputs,
+                     cfg, **kw)
 
 
 def preprocess_batch(raw, phases, cfg: RadarConfig, device=None):
-    """Preprocess one channel's frame batch on ``device`` (default CUDA)."""
+    """Preprocess one channel's frame batch on ``device`` (default CUDA; a
+    replayed CUDA graph there)."""
     dev = resolve_device(device)
-    return _preprocess_impl(_to_device(raw, dev), _to_device(phases, dev),
-                            cfg)
+    return _graphed("preprocess", (_to_device(raw, dev),
+                                   _to_device(phases, dev)), cfg)
 
 
 def clutter_batch(ref, srv, cfg: RadarConfig, device=None) -> torch.Tensor:
     """Clutter-cancel one preprocessed frame batch on ``device`` (default
-    CUDA): (F, output_chunk_length) complex64 ref and srv → cleaned srv."""
+    CUDA): (F, output_chunk_length) complex64 ref and srv → cleaned srv.
+    The LS stage is a replayed CUDA graph there (ops/clutter_graph.py)."""
     dev = resolve_device(device)
     return _clutter_impl(_to_device(ref, dev), _to_device(srv, dev), cfg)
 
 
+def _clean_batch(raw_ref, raw_srv, phases, cfg: RadarConfig,
+                 device=None) -> tuple:
+    """Both channels' preprocess and the clutter stage in one graph on
+    ``device`` (default CUDA): (ref, srv_clean), as preprocess_batch twice
+    and clutter_batch once return them (the stream's clean step)."""
+    dev = resolve_device(device)
+    return _graphed("clean", (_to_device(raw_ref, dev),
+                              _to_device(raw_srv, dev),
+                              _to_device(phases, dev)), cfg)
+
+
 def caf_batch(ref, srv_clean, cfg: RadarConfig, device=None) -> torch.Tensor:
     """Halo overlap + windowed CAF of one preprocessed, clutter-cancelled
-    frame batch on ``device`` (default CUDA): (F, output_chunk_length)
-    complex64 ref and srv_clean → (F, num_doppler_cells,
-    num_range_cells+1) complex64 range-Doppler frames."""
+    frame batch on ``device`` (default CUDA; a replayed CUDA graph there):
+    (F, output_chunk_length) complex64 ref and srv_clean → (F,
+    num_doppler_cells, num_range_cells+1) complex64 range-Doppler
+    frames."""
     dev = resolve_device(device)
-    return _caf_batch_impl(_to_device(ref, dev), _to_device(srv_clean, dev),
-                           cfg)
+    return _graphed("caf", (_to_device(ref, dev), _to_device(srv_clean, dev)),
+                    cfg)
 
 
 def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
@@ -168,18 +277,16 @@ def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
     """Full chain for a self-contained batch of frames (halo from within the
     batch, zero at its edges). raw_*: (F, input_chunk_length) float32 or
     (F, input_chunk_length//2, 2) IQ pairs; phases: (F,) float32. Returns
-    (F, num_doppler_cells, num_range_cells+1) complex64 on ``device``."""
+    (F, num_doppler_cells, num_range_cells+1) complex64 on ``device``.
+
+    On the card the whole batch (both preprocesses, the clutter stage, the
+    halo and the CAF) is one replayed CUDA graph a key (``graph_key``), the
+    counterpart of the JAX package's one compiled program
+    (``_process_frames_jit``); a key's first call runs the eager chain."""
     dev = resolve_device(device)
-    return _process_frames_impl(_to_device(raw_ref, dev),
-                                _to_device(raw_srv, dev),
-                                _to_device(phases, dev), cfg)
-
-
-def _process_groups_impl(raw_refs: torch.Tensor, raw_srvs: torch.Tensor,
-                         phases: torch.Tensor,
-                         cfg: RadarConfig) -> torch.Tensor:
-    return torch.stack([_process_frames_impl(r, s, p, cfg)
-                        for r, s, p in zip(raw_refs, raw_srvs, phases)])
+    return _graphed("frames", (_to_device(raw_ref, dev),
+                               _to_device(raw_srv, dev),
+                               _to_device(phases, dev)), cfg)
 
 
 def process_frames_groups(raw_refs, raw_srvs, phases, cfg: RadarConfig,
@@ -189,13 +296,12 @@ def process_frames_groups(raw_refs, raw_srvs, phases, cfg: RadarConfig,
     separate process_frames calls. Returns (G, F, num_doppler_cells,
     num_range_cells+1) complex64 on ``device`` (default CUDA).
 
-    Where the JAX package scans the G batches inside one compiled program
-    to pay its launch overhead once, eager PyTorch launches every batch's
-    kernels anyway: this is a loop over the G batches."""
+    As the JAX package scans the G batches inside one compiled program, the
+    card replays the G batches as one CUDA graph."""
     dev = resolve_device(device)
-    return _process_groups_impl(_to_device(raw_refs, dev),
-                                _to_device(raw_srvs, dev),
-                                _to_device(phases, dev), cfg)
+    return _graphed("groups", (_to_device(raw_refs, dev),
+                               _to_device(raw_srvs, dev),
+                               _to_device(phases, dev)), cfg)
 
 
 def process_frames_shmap(raw_ref, raw_srv, phases, cfg: RadarConfig,
@@ -204,26 +310,28 @@ def process_frames_shmap(raw_ref, raw_srv, phases, cfg: RadarConfig,
 
     The frame axis is cut into ``len(mesh)`` contiguous blocks, block i on
     ``mesh.devices[i]``; each block is preprocessed and clutter-cancelled
-    on its device, the CPI-overlap halo is exchanged between neighbouring
-    blocks (parallel/halo.local_overlap: the only traffic between shards),
-    and each block's CAF runs on its device. raw_*, phases as for
-    process_frames (numpy or tensors on any device); the frame count must
-    divide the mesh. Returns the per-shard (F/len(mesh), num_doppler_cells,
+    on its device (one replayed graph on a card), the CPI-overlap halo is
+    exchanged between neighbouring blocks (parallel/halo.exchange_edges:
+    the only traffic between shards), and each block's overlap and CAF run
+    on its device (a second graph). raw_*, phases as for process_frames
+    (numpy or tensors on any device); the frame count must divide the mesh.
+    Returns the per-shard (F/len(mesh), num_doppler_cells,
     num_range_cells+1) complex64 map blocks in frame order, each on its
     shard's device; their concatenation equals process_frames."""
     refs, srvs, phs = (split_frames(_as_tensor(x), mesh)
                        for x in (raw_ref, raw_srv, phases))
-    ref_blocks, clean_blocks = [], []
-    for r, s, p in zip(refs, srvs, phs):
-        ref = _preprocess_impl(r, p, cfg)
-        ref_blocks.append(ref)
-        clean_blocks.append(_clutter_impl(ref, _preprocess_impl(s, p, cfg),
-                                          cfg))
-    if cfg.window_overlap:
-        ref_blocks = local_overlap(ref_blocks, cfg.window_overlap)
-        clean_blocks = local_overlap(clean_blocks, cfg.window_overlap)
-    return [_caf_windowed(r, s, cfg)
-            for r, s in zip(ref_blocks, clean_blocks)]
+    cleaned = [_graphed("clean", (r, s, p), cfg)
+               for r, s, p in zip(refs, srvs, phs)]
+    ref_blocks = [r for r, _ in cleaned]
+    clean_blocks = [s for _, s in cleaned]
+    if not cfg.window_overlap:
+        return [_graphed("caf", (r, s), cfg)
+                for r, s in zip(ref_blocks, clean_blocks)]
+    ref_edges = exchange_edges(ref_blocks, cfg.window_overlap)
+    srv_edges = exchange_edges(clean_blocks, cfg.window_overlap)
+    return [_graphed("halo_caf", (r, s, *re, *se), cfg)
+            for r, s, re, se in zip(ref_blocks, clean_blocks, ref_edges,
+                                    srv_edges)]
 
 
 def frame_phases(cfg: RadarConfig, frame_indices: Sequence[int]) -> np.ndarray:
@@ -264,11 +372,11 @@ def run_capture(reader, writer, cfg: RadarConfig,
     global frame index (``frame_offset``). ``mesh``
     (parallel/mesh.FrameMesh) splits each batch over its devices
     (process_frames_shmap), the buffer rounded up to a multiple of its
-    size; ``device`` is then ignored. ``dispatch_groups`` (>= 1) is taken
-    for the JAX package's signature and ignored: eager PyTorch launches
-    every batch's kernels whether or not G batches share a call, so a
-    grouped dispatch saves no launch and only delays the first batch's
-    copy and write (process_frames_groups is the grouped call as a
+    size; ``device`` is then ignored. On one card each batch is a replay
+    of the batch graph (process_frames). ``dispatch_groups`` (>= 1) is
+    taken for the JAX package's signature and ignored: a batch is already
+    one graph launch, so a grouped dispatch would only delay the first
+    batch's copy and write (process_frames_groups is the grouped call as a
     library function).
     """
     if int(dispatch_groups) < 1:
@@ -317,22 +425,27 @@ def run_capture(reader, writer, cfg: RadarConfig,
     # after its copies were queued, by when finish() has waited on them
     host = [dict(ref=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
                  srv=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
+                 ph=torch.empty(buf_n, dtype=torch.float32, pin_memory=pin),
                  out=torch.empty(map_shape, dtype=torch.complex64,
                                  pin_memory=pin))
             for _ in range(2)]
     done = getattr(writer, "frames_done", 0)
 
-    def dispatch(bufs, phases):
+    def dispatch(bufs):
         """One batch's maps as (buf_n, ...) on the host, with the events
-        to wait for before reading them."""
-        ph = torch.from_numpy(phases)
+        to wait for before reading them. On one card the pinned buffers go
+        straight into the batch graph's static inputs and its static output
+        straight into the pinned ``out``, all in stream order: the host
+        never waits here, so the next batch is read and enqueued while the
+        card works."""
+        inputs = (bufs["ref"], bufs["srv"], bufs["ph"])
         if mesh is not None:
-            blocks = process_frames_shmap(bufs["ref"], bufs["srv"], ph, cfg,
-                                          mesh)
+            blocks = process_frames_shmap(*inputs, cfg, mesh)
+        elif pin:
+            blocks = [_graphed("frames", inputs, cfg, device=dev,
+                               fresh=False)]
         else:
-            blocks = [_process_frames_impl(
-                bufs["ref"].to(dev, non_blocking=True),
-                bufs["srv"].to(dev, non_blocking=True), ph.to(dev), cfg)]
+            blocks = [_process_frames_impl(*inputs, cfg)]
         if not pin:
             return torch.cat(blocks), []
         events, at = [], 0
@@ -367,10 +480,11 @@ def run_capture(reader, writer, cfg: RadarConfig,
             buf[slot0 + nread:] = 0
             buf[slot0:slot0 + nread] = raw if pair_mode else \
                 raw.view(np.float32).reshape(nread, lc, 2)
-        phases = np.zeros(buf_n, np.float32)
+        phases = bufs["ph"].numpy()
+        phases[:] = 0
         phases[slot0:slot0 + nread] = frame_phases(
             cfg, list(range(frame0 + lo, frame0 + hi)))
-        maps, events = dispatch(bufs, phases)
+        maps, events = dispatch(bufs)
         if pending is not None:
             finish(pending)
         pending = (start, count, maps, events)

@@ -16,6 +16,7 @@ O(1) memory.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -25,11 +26,10 @@ from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.detect.trackers import init_tracks, \
     multitarget_step, to_host
-from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops.caf import device_window, fast_xambg
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.util import to_host_complex
-from passiveradar_torch.pipeline import clutter_batch, frame_phases, \
-    preprocess_batch
+from passiveradar_torch.pipeline import _clean_batch, _replayed, frame_phases
 
 DETAILS = ("full", "summary")
 
@@ -59,6 +59,18 @@ def _fetch_summary(tracks) -> dict:
         "estimate": a[..., 2:4],
         "measurement": a[..., 4:6],
     }
+
+
+def _caf_cfar(left_r, ref, right_r, left_s, srv, right_s, cfg: RadarConfig,
+              window, cfar_kernel: tuple) -> tuple:
+    """One frame's halo-complete CAF and its CFAR map (the JAX package's
+    ``_assemble_caf_cfar``): ref and srv (n,) with their (h,) halos →
+    (num_doppler_cells, num_range_cells+1) complex64 and float32."""
+    caf = fast_xambg(torch.cat([left_r, ref, right_r]),
+                     torch.cat([left_s, srv, right_s]), cfg.num_range_cells,
+                     cfg.num_doppler_cells, window=window,
+                     short_filt=cfg.caf_short_filt)
+    return caf, cfar_2d(caf.abs(), *cfar_kernel)
 
 
 @dataclasses.dataclass
@@ -102,9 +114,8 @@ class StreamingProcessor:
             self._warm()
         self._hist: list = []    # [(index, ref_if, srv_clean)] last frame
         self._index = 0
-        win = resolve_window(cfg.caf_window, cfg.caf_input_samples)
-        self._window = None if win is None else \
-            torch.from_numpy(win).to(self.dev)
+        self._window = device_window(cfg.caf_window, cfg.caf_input_samples,
+                                     self.dev)
 
     def _warm(self) -> None:
         """One CFAR pass and one tracker step on a zero frame and a scratch
@@ -128,10 +139,9 @@ class StreamingProcessor:
                 raw = torch.from_numpy(np.ascontiguousarray(raw))
             return raw[None]
 
-        r = preprocess_batch(ship(raw_ref), phases, cfg, device=self.dev)
-        s = preprocess_batch(ship(raw_srv), phases, cfg, device=self.dev)
-        s = clutter_batch(r, s, cfg, device=self.dev)
-        return r, s
+        # both preprocesses and the clutter stage: one graph on the card
+        return _clean_batch(ship(raw_ref), ship(raw_srv), phases, cfg,
+                            device=self.dev)
 
     def _finish(self, prev, cur, last: bool = False,
                 detail: Optional[str] = None) -> StreamResult:
@@ -146,11 +156,14 @@ class StreamingProcessor:
         # halos instead of the whole frame
         right_r, right_s = (zeros, zeros) if last else \
             (cur[0][0, :h], cur[1][0, :h])
-        caf = fast_xambg(torch.cat([left_r, ref_c[0], right_r]),
-                         torch.cat([left_s, srv_c[0], right_s]),
-                         cfg.num_range_cells, cfg.num_doppler_cells,
-                         window=self._window, short_filt=cfg.caf_short_filt)
-        cf = cfar_2d(caf.abs(), *self.cfar_kernel)
+        # the CAF and the CFAR: one graph on the card; the tracker step
+        # (its own kernel) stays outside
+        caf, cf = _replayed(
+            "stream_caf", functools.partial(
+                _caf_cfar, cfg=cfg, window=self._window,
+                cfar_kernel=tuple(self.cfar_kernel)),
+            (left_r, ref_c[0], right_r, left_s, srv_c[0], right_s), cfg,
+            tuple(self.cfar_kernel))
         self._tracks = multitarget_step(self._tracks, cf, self._extent,
                                         self.n_tracks, cfg.candidate_budget)
         self._left_tail = (ref_c[0, n - h:], srv_c[0, n - h:])

@@ -33,12 +33,13 @@ from passiveradar_torch._device import on_device, resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.detect.trackers import _slot, init_tracks, \
     multitarget_step, to_host
-from passiveradar_torch.ops.caf import fast_xambg, resolve_window
+from passiveradar_torch.ops.caf import device_window, fast_xambg, \
+    resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.channelizer import channelize, channelize_pair
 from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
 from passiveradar_torch.ops.util import as_complex, to_host_complex
-from passiveradar_torch.pipeline import _as_tensor, _window_tensor
+from passiveradar_torch.pipeline import _as_tensor
 from passiveradar_torch.streaming import DETAILS, StreamResult, \
     _fetch_summary
 
@@ -126,7 +127,7 @@ def channel_caf(refc: torch.Tensor, clean: torch.Tensor,
                 cfg: RadarConfig) -> torch.Tensor:
     """The per-channel windowed CAF over a (B, cpi_samples) batch →
     (B, num_doppler_cells, num_range_cells+1) complex64."""
-    win = _window_tensor(cfg.caf_window, cfg.cpi_samples, refc.device)
+    win = device_window(cfg.caf_window, cfg.cpi_samples, refc.device)
     return fast_xambg(refc, clean, cfg.num_range_cells,
                       cfg.num_doppler_cells, window=win,
                       short_filt=cfg.caf_short_filt)

@@ -969,3 +969,253 @@ def test_graphed_stage_replays_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert torch.equal(got, eager) and torch.equal(again, eager)
+
+
+# ------------------------------------------ the entry points' CUDA graphs
+
+def _bits(x):
+    """The tensor's bits: NaN frames compare equal to themselves."""
+    if x.is_complex():
+        x = torch.view_as_real(x)
+    return x.contiguous().view(torch.int32)
+
+
+def _graph_batch(cuda, dtype="float32", nfr=4, **over):
+    """A batch at a geometry whose LS transforms reach the fused FFT's
+    lengths (65,536-sample CPIs): raw IQ pairs (int16 or float32) with a
+    zero margin frame first, and phases, on the card."""
+    params = dict(input_sample_rate=49152, input_center_freq=1_000_000,
+                  channel_freq=990_170, channel_bandwidth=12800,
+                  cpi_seconds_nominal=8.0, max_doppler_nominal=128.0,
+                  max_range_nominal=400.0)
+    if dtype == "int16":
+        params["int16_scale"] = 1.0 / 4096
+    cfg = derive_config(dict(params, **over))
+    ref, srv = synth_capture_arrays(cfg, nfr, targets=(Target(40, 20.0, 0.1),))
+    n = cfg.input_chunk_length
+    shape = (nfr, n // 2, 2)
+    ref, srv = ref[:nfr * n].reshape(shape), srv[:nfr * n].reshape(shape)
+    if dtype == "int16":
+        ref = np.round(ref * 4096).astype(np.int16)
+        srv = np.round(srv * 4096).astype(np.int16)
+    ref[0] = srv[0] = 0
+    ph = frame_phases(cfg, list(range(nfr)))
+    return (cfg, torch.from_numpy(ref).to(cuda), torch.from_numpy(srv).to(cuda),
+            torch.from_numpy(ph).to(cuda))
+
+
+def _fused_env(monkeypatch, fused):
+    if fused:
+        monkeypatch.setenv("PASSIVERADAR_PALLAS_FFT", "1")
+    else:
+        monkeypatch.delenv("PASSIVERADAR_PALLAS_FFT", raising=False)
+
+
+def _assert_replays_equal_eager(cuda, kind, fn, eager, inputs, cfg):
+    """fn() three times (warm-up and capture, then two replays), each
+    bit-equal to ``eager``; the graph kept under its key replayed twice."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops import graphs
+    outs = [fn() for _ in range(3)]
+    torch.cuda.synchronize()
+    entry = graphs.lookup(pl.graph_key(kind, cuda, inputs, cfg), cuda)
+    assert entry is not None and entry.replays >= 2
+    for out in outs:
+        for got, want in zip(graphs._tensors(out), graphs._tensors(eager)):
+            assert torch.equal(_bits(got), _bits(want))
+    return entry
+
+
+_BATCH_CASES = [("ls_multiple", dt, fused, sf) for dt in ("int16", "float32")
+                for fused in (False, True) for sf in (True, False)] + [
+    (m, dt, False, sf) for m in ("nlms", "nlms_pallas", "none")
+    for dt in ("int16", "float32") for sf in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,dtype,fused,short_filt", _BATCH_CASES)
+def test_batch_graph_matches_eager(cuda, monkeypatch, method, dtype, fused,
+                                   short_filt):
+    """process_frames as a replayed batch graph against the eager chain on
+    the same card, bit for bit (the NaN frames of 'nlms' included), for
+    every clutter_method, raw dtype, FFT route and CAF decimator; the
+    launches of a replay are those of the eager chain."""
+    from passiveradar_torch import pipeline as pl
+    _fused_env(monkeypatch, fused)
+    cfg, ref, srv, ph = _graph_batch(cuda, dtype, clutter_method=method,
+                                     caf_short_filt=short_filt)
+    eager = pl._process_frames_impl(ref, srv, ph, cfg)
+    entry = _assert_replays_equal_eager(
+        cuda, "frames", lambda: pl.process_frames(ref, srv, ph, cfg), eager,
+        (ref, srv, ph), cfg)
+    assert entry.launches.get("mix_regroup_matmul") == 2
+    assert entry.launches.get("nlms_filter_pallas", 0) == (
+        1 if method.startswith("nlms") else 0)
+    assert entry.launches.get("levinson_first_col", 0) == (
+        1 if method == "ls_multiple" else 0)
+    assert (entry.launches.get("fft_fused", 0) > 0) == (
+        fused and method == "ls_multiple")
+    if method == "nlms":
+        assert torch.isnan(eager[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", _IMPLS)
+@pytest.mark.parametrize("solver", _SOLVERS)
+def test_batch_graph_every_canceller_matches_eager(cuda, impl, solver):
+    """Every clutter_impl × clutter_solver captured inside the batch graph
+    (the LS stage eager there), each replay bit-equal to the eager chain."""
+    from passiveradar_torch import pipeline as pl
+    cfg, ref, srv, ph = _graph_batch(cuda, nfr=3, clutter_impl=impl,
+                                     clutter_solver=solver)
+    eager = pl._process_frames_impl(ref, srv, ph, cfg)
+    _assert_replays_equal_eager(
+        cuda, "frames", lambda: pl.process_frames(ref, srv, ph, cfg), eager,
+        (ref, srv, ph), cfg)
+
+
+@pytest.mark.cuda
+def test_stage_entry_points_replay_graphs(cuda):
+    """preprocess_batch, caf_batch, process_frames_groups and the stream's
+    clean step each replay their own graph, bit-equal to their eager
+    functions."""
+    from passiveradar_torch import pipeline as pl
+    cfg, ref, srv, ph = _graph_batch(cuda)
+    r_if = pl._preprocess_impl(ref, ph, cfg)
+    _assert_replays_equal_eager(
+        cuda, "preprocess", lambda: pl.preprocess_batch(ref, ph, cfg), r_if,
+        (ref, ph), cfg)
+    clean = pl._clean_impl(ref, srv, ph, cfg)
+    _assert_replays_equal_eager(
+        cuda, "clean", lambda: pl._clean_batch(ref, srv, ph, cfg), clean,
+        (ref, srv, ph), cfg)
+    _assert_replays_equal_eager(
+        cuda, "caf", lambda: pl.caf_batch(*clean, cfg),
+        pl._caf_batch_impl(*clean, cfg), clean, cfg)
+    refs, srvs, phs = (x.reshape(2, 2, *x.shape[1:]) for x in (ref, srv, ph))
+    _assert_replays_equal_eager(
+        cuda, "groups", lambda: pl.process_frames_groups(refs, srvs, phs, cfg),
+        pl._process_groups_impl(refs, srvs, phs, cfg), (refs, srvs, phs),
+        cfg)
+
+
+@pytest.mark.cuda
+def test_batch_graph_replays_without_host_sync(cuda):
+    """Once captured, the batch graph replays under
+    torch.cuda.set_sync_debug_mode("error"): no host sync in the copies,
+    the replay or the clone; the replay equals the eager chain."""
+    from passiveradar_torch import pipeline as pl
+    cfg, ref, srv, ph = _graph_batch(cuda)
+    pl.process_frames(ref, srv, ph, cfg)
+    eager = pl._process_frames_impl(ref, srv, ph, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pl.process_frames(ref, srv, ph, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+
+
+class _MemReader:
+    """A capture in memory as run_capture reads it (read_pair_frames)."""
+
+    def __init__(self, ref, srv):
+        self.ref, self.srv = ref, srv
+        self.num_frames = ref.shape[0]
+        self.pair_dtype = ref.dtype
+
+    def read_pair_frames(self, start, count):
+        return self.ref[start:start + count], self.srv[start:start + count]
+
+
+class _MemWriter:
+    def __init__(self, shape):
+        self.maps = np.zeros(shape, np.complex64)
+        self.frames_done = 0
+
+    def write(self, frames, start):
+        self.maps[start:start + len(frames)] = frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_run_capture_maps_equal_the_eager_chain(cuda, dtype):
+    """run_capture on the card (7 frames in batches of 3: a capture, then
+    replays fed from the pinned buffers) writes each batch's maps bit for
+    bit as the eager chain gives them on the same buffers: frames written,
+    one margin frame on each side, zero outside the capture."""
+    from passiveradar_torch import pipeline as pl
+    total, bf = 7, 3
+    cfg, ref, srv, _ = _graph_batch(cuda, dtype, nfr=total, num_frames=total)
+    ref, srv = ref.cpu().numpy(), srv.cpu().numpy()
+    ref[0] = srv[0] = ref[1]                    # no zero frame here
+    writer = _MemWriter((total, cfg.num_doppler_cells,
+                         cfg.num_range_cells + 1))
+    assert pl.run_capture(_MemReader(ref, srv), writer, cfg, batch_frames=bf,
+                          progress=False, device=cuda) == total
+    for start in range(0, total, bf):
+        count = min(bf, total - start)
+        slots = range(start - 1, start + bf + 1)
+        buf = [np.stack([x[i] if 0 <= i < total else np.zeros_like(x[0])
+                         for i in slots]) for x in (ref, srv)]
+        ph = np.array([pl.frame_phases(cfg, [i])[0] if 0 <= i < total else 0
+                       for i in slots], np.float32)
+        want = pl._process_frames_impl(
+            *(torch.from_numpy(b).to(cuda) for b in buf),
+            torch.from_numpy(ph).to(cuda), cfg).cpu().numpy()
+        np.testing.assert_array_equal(writer.maps[start:start + count],
+                                      want[1:1 + count])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ls_multiple", "nlms_pallas"])
+def test_process_frames_shmap_one_card_graphed_equals_process_frames(
+        cuda, method):
+    """One shard on the card: the clean graph, the exchange (zero halos)
+    and the halo_caf graph give process_frames' maps bit for bit; a second
+    call replays both graphs."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops import graphs
+    from passiveradar_torch.parallel.mesh import make_mesh
+    cfg, ref, srv, ph = _graph_batch(cuda, clutter_method=method)
+    want = pl.process_frames(ref, srv, ph, cfg)
+    mesh = make_mesh(devices=[cuda])
+    runs = [torch.cat(pl.process_frames_shmap(ref, srv, ph, cfg, mesh))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got in runs:
+        assert torch.equal(got, want)
+    kinds = [g["kind"] for g in graphs.cache_info()
+             if g["key"].get("clutter_method") == method]
+    assert {"clean", "halo_caf"} <= set(kinds)
+
+
+@pytest.mark.cuda
+def test_stream_graphs_match_eager(cuda):
+    """The stream on the card: each push's clean step and CAF + CFAR step
+    replay graphs; the results equal the eager steps on the same card."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops.caf import fast_xambg
+    from passiveradar_torch.ops.cfar import cfar_2d
+    cfg, ref, srv, ph = _graph_batch(cuda, nfr=4)
+    ref, srv = torch.view_as_complex(ref), torch.view_as_complex(srv)
+    sp = StreamingProcessor(cfg, device=cuda)
+    res = [sp.push(ref[i], srv[i]) for i in range(4)][1:] + [sp.flush()]
+    h = cfg.window_overlap
+    clean = [pl._clean_impl(ref[i:i + 1], srv[i:i + 1], ph[i:i + 1], cfg)
+             for i in range(4)]
+    z = torch.zeros(h, dtype=torch.complex64, device=cuda)
+    for i, r in enumerate(res):
+        left = (z, z) if i == 0 else (clean[i - 1][0][0, -h:],
+                                      clean[i - 1][1][0, -h:])
+        right = (z, z) if i == 3 else (clean[i + 1][0][0, :h],
+                                       clean[i + 1][1][0, :h])
+        caf = fast_xambg(torch.cat([left[0], clean[i][0][0], right[0]]),
+                         torch.cat([left[1], clean[i][1][0], right[1]]),
+                         cfg.num_range_cells, cfg.num_doppler_cells,
+                         window=sp._window, short_filt=cfg.caf_short_filt)
+        np.testing.assert_array_equal(r.caf, caf.cpu().numpy())
+        np.testing.assert_array_equal(
+            r.cfar, cfar_2d(caf.abs(), *sp.cfar_kernel).cpu().numpy())
