@@ -325,6 +325,32 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2,
     return start.elapsed_time(stop) / iters
 
 
+def graph_launch_ms(torch, fn, launches: int = 100,
+                    replays: int = 5) -> float:
+    """Mean milliseconds a call of fn() from CUDA events around replays of
+    one CUDA graph that holds ``launches`` back-to-back calls (torch.profiler
+    drops kernel events, ROADMAP §C; a graph replay takes no host time
+    between the calls). fn is called once first, outside the capture."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * launches)
+    del graph
+    return ms
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled one: _ZN<n><namespace><n><name>...,
     with the template arguments I Li<k>E [Lb<0|1>E] E as <k[, bool]>."""
@@ -1033,6 +1059,28 @@ def per_system_rel(got, want):
     return float(((got - want).abs().amax(-1) / w).max())
 
 
+def levinson_systems(torch, dev, cfg):
+    """The guarded systems the LS stage hands the Levinson kernel: the FM
+    batch's (BATCH + 2 frames × 5 bins, m = 185) and one CPI of
+    bench_wideband.py's band (8 channels × 5 bins, m = 210), each (B, m)
+    contiguous; and the FM batch's raw ref, srv and phases."""
+    from passiveradar_torch.ops import clutter
+
+    ref, srv, ph, r, s = fm_batch(torch, dev, cfg)
+    fm_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
+        r, s, cfg.num_range_cells, cfg.IF_sample_rate,
+        cfg.clutter_doppler_bins))
+    rc, sc, wcfg = wide_batch(torch, dev)
+    chans = len(wcfg.wideband_channel_select)        # one CPI's rows
+    rc, sc = rc[:chans], sc[:chans]
+    wide_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
+        rc, sc, wcfg.num_range_cells, wcfg.IF_sample_rate,
+        wcfg.clutter_doppler_bins))
+    return (ref, srv, ph), {
+        name: ac.reshape(-1, ac.shape[-1]).contiguous()
+        for name, ac in (("fm", fm_ac), ("wideband", wide_ac))}
+
+
 def phase_levinson_kernel(torch, dev, cfg):
     """The Levinson kernel (csrc/levinson.cu) on the systems of the real FM
     batch (BATCH + 2 frames × 5 bins, m = 185, after the stage's guard) and
@@ -1045,9 +1093,10 @@ def phase_levinson_kernel(torch, dev, cfg):
     to the complex128 stack's, and the kernel stack no farther from it than
     LEVINSON_VS_F64 times the plain stack; the kernel stack against the
     plain one beside CHAIN_TOL. Times: the kernel's device time a call
-    (profiler) and ns a step, the call with its host side, the plain loop,
-    and the dense Cholesky solve of the same systems as a two-call
-    yardstick; the bound. Returns the kernels line's row."""
+    (profiler) and ns a step, the same from CUDA events around one graph of
+    100 launches, the call with its host side, the plain loop, and the
+    dense Cholesky solve of the same systems as a two-call yardstick; the
+    bound. Returns the kernels line's row."""
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.ops import clutter
     from passiveradar_torch.ops import levinson_kernel as lk
@@ -1057,19 +1106,9 @@ def phase_levinson_kernel(torch, dev, cfg):
         raise AssertionError(f"csrc/levinson.cu takes m <= {lib_order}, the "
                              f"wrapper {lk.MAX_ORDER}")
     routes = levinson_routes(torch)
-    ref, srv, ph, r, s = fm_batch(torch, dev, cfg)
-    fm_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
-        r, s, cfg.num_range_cells, cfg.IF_sample_rate,
-        cfg.clutter_doppler_bins))
-    rc, sc, wcfg = wide_batch(torch, dev)
-    chans = len(wcfg.wideband_channel_select)        # one CPI's rows
-    rc, sc = rc[:chans], sc[:chans]
-    wide_ac = stage_systems(torch, lambda: clutter.ls_filter_multiple(
-        rc, sc, wcfg.num_range_cells, wcfg.IF_sample_rate,
-        wcfg.clutter_doppler_bins))
+    (ref, srv, ph), systems = levinson_systems(torch, dev, cfg)
     shapes, bad = {}, []
-    for name, ac in (("fm", fm_ac), ("wideband", wide_ac)):
-        c = ac.reshape(-1, ac.shape[-1]).contiguous()
+    for name, c in systems.items():
         b, m = c.shape
         got = lk.levinson_first_col_kernel(c)
         plain = routes["plain"](c)
@@ -1084,6 +1123,8 @@ def phase_levinson_kernel(torch, dev, cfg):
             torch, lambda c=c: lk.levinson_first_col_kernel(c),
             "levinson_kernel")
         ms = dict(kernel=dev_ms,
+                  kernel_graph=graph_launch_ms(
+                      torch, lambda c=c: lk.levinson_first_col_kernel(c)),
                   kernel_call=cuda_ms(
                       torch, lambda c=c: lk.levinson_first_col_kernel(c), 50),
                   plain=cuda_ms(torch, lambda c=c: routes["plain"](c), 3,
@@ -1100,6 +1141,7 @@ def phase_levinson_kernel(torch, dev, cfg):
                 torch.view_as_real(got)).all()),
             max_abs_err_vs_plain=float((got - plain).abs().max()),
             distance=dist, ms=ms, ns_per_step=dev_ms * 1e6 / max(m - 1, 1),
+            ns_per_step_graph=ms["kernel_graph"] * 1e6 / max(m - 1, 1),
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
             bound_share=bound_ms / dev_ms)
         if not (shapes[name]["finite"] and dist["kernel_vs_f64"]
@@ -1770,16 +1812,22 @@ def synced_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def kernel_device_ms(torch, fn, name: str, runs: int = 20) -> float:
+def kernel_device_ms(torch, fn, name: str, runs: int = 20,
+                     attempts: int = 3) -> float:
     """Mean device milliseconds of the kernels whose name holds ``name``
     over ``runs`` calls of fn, from torch.profiler's device events (the
-    host's share of each call left out)."""
+    host's share of each call left out). A trace in which the profiler
+    recorded none of them (it drops events, ROADMAP §C) is taken again, up
+    to ``attempts`` traces."""
     fn()
-    t = trace(torch, lambda: [fn() for _ in range(runs)])
-    rows = [r for r in t.get("by_name", []) if name in r["name"]]
-    if not rows:
-        raise AssertionError(f"the profiler recorded no {name}: {t}")
-    return sum(r["ms"] for r in rows) / sum(r["launches"] for r in rows)
+    for _ in range(attempts):
+        t = trace(torch, lambda: [fn() for _ in range(runs)])
+        rows = [r for r in t.get("by_name", []) if name in r["name"]]
+        if rows:
+            return sum(r["ms"] for r in rows) / sum(r["launches"]
+                                                    for r in rows)
+    raise AssertionError(f"the profiler recorded no {name} in {attempts} "
+                         f"traces: {t}")
 
 
 def tracker_scene(channels, frames, nf, nr, seed):
@@ -1818,25 +1866,15 @@ def tracker_tables_agree(tt, got, want) -> dict:
                 confirmed_slots=int((want["status"] == 2).sum()))
 
 
-def phase_tracker_kernel(torch, dev, cfg):
-    """The tracker-step kernel (csrc/tracker.cu) against its plain version
-    on the same card candidates, 10 tracks: at the FM stream's shape (C = 1,
-    K = cfg.candidate_budget) on the main path's 16-frame LS CFAR stack,
-    and at the wideband stream's (C = 8 channels, K = 384) on
-    tracker_scene; each over the 16 frames from free tables (T = 16) and
-    for one frame from the tables that 12 plain frames left (T = 1). Then
-    the whole step (batched get_measurements and one launch) under
-    torch.cuda.set_sync_debug_mode("error") at both shapes, its kernel
-    launches from the profiler (at most TRACKER_MAX_LAUNCHES for the 8
-    channels), and the times: the kernel's device time from the profiler
-    (a step at T = 1; T = 16, and µs a slot over its frames), the kernel
-    call with its host side and the whole step by CUDA events, the plain
-    step by the host clock; the bound; and candidate extraction's peak
-    working memory on long FM stacks (extraction_memory), which must not
-    grow with the stack. Returns the kernels line's row."""
+def tracker_inputs(torch, dev, cfg):
+    """The tracker kernel's inputs at the FM stream's shape (C = 1, K =
+    cfg.candidate_budget, the main path's 16-frame LS CFAR stack) and the
+    wideband stream's (C = 8 channels, K = 384, tracker_scene): the CFAR
+    frames, extent, K, the candidates of the 16 frames, TRACKER_SLOTS free
+    tables, the tables that FRAMES - 4 plain frames left (live) and the
+    next frame's candidates (one); and the FM CFAR stack."""
     from passiveradar_torch.cli.plot import cfar_stack
     from passiveradar_torch.config import derive_config
-    from passiveradar_torch.detect import tracker_kernel as trk
     from passiveradar_torch.detect import trackers as tt
     from passiveradar_torch.detect.measurements import get_measurements
     from passiveradar_torch.io.writers import load_maps
@@ -1850,20 +1888,54 @@ def phase_tracker_kernel(torch, dev, cfg):
         8, FRAMES, wcfg.num_doppler_cells, wcfg.num_range_cells + 1,
         seed=3)).to(dev)
     wide = cfar_2d(scene.flatten(0, 1), 18, 4).reshape(scene.shape)
-    shapes = {}
+    out = {}
     for name, c_cfg, frames in (("fm", cfg, fm), ("wideband", wcfg, wide)):
         extent = torch.tensor((c_cfg.max_doppler_actual,
                                c_cfg.max_range_actual), device=dev)
         k = c_cfg.candidate_budget
         cand, valid = get_measurements(frames, extent, k)
-        c = cand.shape[0]
-        free = tt.init_tracks(n, dev, c)
+        free = tt.init_tracks(n, dev, cand.shape[0])
         lead = FRAMES - 4
         live = tt._map(lambda a: a[-1].contiguous(),
                        tt.multitarget_step_plain(free, cand[:, :lead],
                                                  valid[:, :lead], n))
         one = (cand[:, lead:lead + 1].contiguous(),
                valid[:, lead:lead + 1].contiguous())
+        out[name] = dict(frames=frames, extent=extent, k=k, cand=cand,
+                         valid=valid, free=free, live=live, one=one)
+    return out, fm
+
+
+def phase_tracker_kernel(torch, dev, cfg):
+    """The tracker-step kernel (csrc/tracker.cu) against its plain version
+    on the same card candidates, 10 tracks: at the FM stream's shape (C = 1,
+    K = cfg.candidate_budget) on the main path's 16-frame LS CFAR stack,
+    and at the wideband stream's (C = 8 channels, K = 384) on
+    tracker_scene; each over the 16 frames from free tables (T = 16) and
+    for one frame from the tables that 12 plain frames left (T = 1). Then
+    the whole step (batched get_measurements and one launch) under
+    torch.cuda.set_sync_debug_mode("error") at both shapes, its kernel
+    launches from the profiler (at most TRACKER_MAX_LAUNCHES for the 8
+    channels), and the times: the kernel's device time from the profiler
+    (a step at T = 1; T = 16, and µs a slot over its frames), the same from
+    CUDA events around one graph of 100 launches, the kernel call with its
+    host side and the whole step by CUDA events, the plain step by the
+    host clock; the bound; the shared-memory limits at the FM shape (the
+    most tracks at its K, the most K at 10 tracks); and candidate
+    extraction's peak working memory on long FM stacks
+    (extraction_memory), which must not grow with the stack. Returns the
+    kernels line's row."""
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+
+    n = TRACKER_SLOTS
+    inputs, fm = tracker_inputs(torch, dev, cfg)
+    shapes = {}
+    for name, x in inputs.items():
+        frames, extent, k = x["frames"], x["extent"], x["k"]
+        cand, valid, free, live, one = (x["cand"], x["valid"], x["free"],
+                                        x["live"], x["one"])
+        c, lead = cand.shape[0], FRAMES - 4
         checks = dict(
             T16=tracker_tables_agree(
                 tt, trk.multitarget_step_kernel(free, cand, valid, n),
@@ -1893,6 +1965,11 @@ def phase_tracker_kernel(torch, dev, cfg):
                 torch, lambda: trk.multitarget_step_kernel(free, cand, valid,
                                                            n),
                 "tracker_kernel"),
+            kernel_graph=graph_launch_ms(
+                torch, lambda: trk.multitarget_step_kernel(live, *one, n)),
+            kernel_T16_graph=graph_launch_ms(
+                torch, lambda: trk.multitarget_step_kernel(free, cand, valid,
+                                                           n)),
             kernel_call=cuda_ms(torch, lambda: trk.multitarget_step_kernel(
                 live, *one, n), 50),
             step=cuda_ms(torch, step, 20),
@@ -1903,20 +1980,24 @@ def phase_tracker_kernel(torch, dev, cfg):
         # the kernel reads each candidate's range and Doppler and its valid
         # byte (not its strength), and the table in and out
         nbytes = 2 * table_bytes + c * (2 * k * 4 + k)
-        # a slot's two passes, ~16 float operations a candidate, and its
-        # Kalman algebra, ~400
+        # a slot's gates over every candidate, ~16 float operations a
+        # candidate, and its Kalman algebra, ~400
         ops = c * n * (16.0 * k + 400.0)
         bound_ms, bound_by = flops_bound(nbytes, ops)
         shapes[name] = dict(
             C=c, T=FRAMES, K=k, n_tracks=n, checks=checks,
             step_launches=launches, ms=ms,
             us_per_slot_T16=ms["kernel_T16"] * 1e3 / (FRAMES * n),
+            us_per_slot_T16_graph=ms["kernel_T16_graph"] * 1e3 / (FRAMES * n),
             bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
             bound_share=bound_ms / ms["kernel"])
     memory = extraction_memory(torch, fm[0], cfg)
     emit(dict(phase="tracker_kernel", tol=TRACKER_TOL,
               max_launches=TRACKER_MAX_LAUNCHES, sync_debug="error",
-              extraction_memory=memory, **shapes))
+              extraction_memory=memory,
+              shared_memory=trk.shared_memory_limits(shapes["fm"]["K"], n,
+                                                     dev.index),
+              **shapes))
     if memory["chunked"]["8"]["working_bytes"] > \
             1.05 * memory["chunked"]["2"]["working_bytes"]:
         raise AssertionError(f"candidate extraction's working memory grows "

@@ -15,32 +15,51 @@
 //     e      <- e (1 - |kappa|^2)
 //
 // and x[b] = a / e. a has degree k-1 entering step k and ar its support
-// [1, k], so a step touches j <= k only.
+// [1, k].
 //
-// Design: one warp a system, four warps a CTA (a CTA of fewer warps only
-// where one warp's shared memory needs it). A lane holds a[j] for
-// j = lane + 32 i in registers (I slots, I a power of two with 32 I >= m,
-// up to m = 512; above that a lives in shared memory too). c is staged in
-// shared memory once. Each step is one complex multiply-add a slot over
-// j < k, one warp-shuffle butterfly (five levels, every lane ends with the
-// same sum, so no broadcast), one division, and the update of the slots
-// with j <= k. The one-sample shift of ar costs nothing: ar lives in shared
-// memory as R with ar_k[j] = R[j + m - k], so each step's update reads and
-// writes R at the same place, R[j + m - k] += conj(kappa) a[j], and the
-// shift is the offset's decrement. A lane writes only the entries it reads,
-// so one __syncwarp a step orders the hand-over to the neighbour that reads
-// it next step; R[m - k - 1] (ar's zero at j = 0) is never written. No
-// block barrier, no global memory inside the recursion. This is what the
-// suggested design's __shfl_up shift becomes: four shuffles a slot traded
-// for one shared load and store that the update needs anyway.
+// Design: the Schur-Levinson recursion. The kernel carries the residual
+// correlations u[i] = sum_j a[j] c[i-j] and v[i] = sum_j ar[j] c[i-j] for
+// i >= k beside the polynomials. Convolution with c is linear, so the
+// updates carry over: u <- u + kappa v, v <- shift_1(v + conj(kappa) u),
+// from u_1[i] = c[i], v_1[i] = c[i-1]; and kappa = -u[k] / e is one entry,
+// with no sum. a lives on j < k and u on i >= k, so one array X holds both,
+// X[j] = a[j] below k and u[j] from k on, and one array Y holds ar below
+// the diagonal and v from it on; every entry then takes the same update
+//
+//     X[j] <- X[j] + kappa Y_k[j],  Y_k[j] <- Y_k[j] + conj(kappa) X[j]
+//
+// with old values on the right, except the pivot j = k, whose X becomes
+// a[k] = kappa (ar[k] = conj(a[0]) = 1; u[k] is spent) while its Y carries
+// v on. The one-sample shifts cost nothing: Y lives in shared memory with
+// Y_k[j] = Y[j + m - k], so each step updates every entry in place and the
+// shift is the offset's decrement; Y starts as m zeros (ar, whose zero at
+// j = 0, Y[m - k - 1], is never written) and c[0..m-2] (v_1).
+//
+// One warp a system, four warps a CTA (fewer only where one warp's shared
+// memory needs it). A lane holds X[j] for j = lane + 32 i in registers (I
+// = ceil(m / 32) slots, up to m = 512; above that X lives in shared memory
+// too). The next kappa needs u_k[k+1] and v_k[k+1] only; the lanes that
+// update those two entries in step k - 1 also write them to two side cells
+// (by the step's parity, so that a step never writes what it reads), and
+// each lane reads both at the top of step k, with its Y entries. A step is
+// then one straight run with no branch: the loads, the next kappa (one
+// multiply-add, one reciprocal, two products), the entry updates, which do
+// not depend on each other, the predicated stores, and one __syncwarp that
+// orders Y's hand-over to the neighbour that reads it next step. No
+// cross-lane reduction, no shuffle, no block barrier, no global memory
+// inside the recursion.
 //
 // What bounds it: not the card's rates. A launch reads B m complex values
 // and writes B m: at the FM geometry (B = 50 systems of m = 185) 148 KB,
-// 44 ns at 3.35 TB/s. The arithmetic is about 24 k + 16 float operations at
-// step k, 12 m^2 a system: 20.4 MFLOP, 0.3 us at 67 TFLOP/s. Its time is
-// the chain of m - 1 dependent steps, each a shared load, a multiply-add,
-// a five-level shuffle reduction, a division and the update, whatever B
-// is: at FM 13 CTAs on 132 SMs. Its figure of merit is ns a step.
+// 44 ns at 3.35 TB/s. The plain recursion's arithmetic is about 12 m^2
+// float operations a system (20.6 MFLOP at FM, 0.3 us at 67 TFLOP/s); this
+// one does ~16 m a step, ~16 m^2 a system. Its time is m - 1 dependent
+// steps, whatever B is (at FM 13 CTAs on 132 SMs): a step is one warp
+// issuing ~17 instructions an entry for its ceil(m / 32) entries a lane
+// (~160 at FM), after the shared-memory latency of the step's loads, which
+// wait for the last step's stores; alone on its SM sub-partition, the warp
+// issues about one instruction every two cycles (~157 ns a step at FM on
+// an H100). Its figure of merit is ns a step.
 
 #include <cuda_runtime.h>
 
@@ -48,33 +67,51 @@ namespace {
 
 constexpr int WARP = 32;
 constexpr int WARPS = 4;                  // systems a CTA
-constexpr int MAX_M = 8192;               // one warp's c, R and a in shared
+constexpr int MAX_M = 8192;               // one warp's Y and X in shared
 constexpr int MAX_DEVICES = 64;
-constexpr int VARIANTS = 6;               // I = 1, 2, 4, 8, 16 and 0
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_SLOTS = 16;             // register slots: m <= 512
+constexpr int VARIANTS = MAX_SLOTS + 1;   // I = 1 .. 16, and 0
+constexpr int SIDE = 4;                   // u_k[k+1] and v_k[k+1], by parity
 
-// float2 words of one warp's shared memory: c (m), R (m + 1), and a (m)
-// when it does not live in registers
-__host__ __device__ inline int warp_words(int m, bool a_shared) {
-  return 2 * m + 1 + (a_shared ? m : 0);
+// float2 words of one warp's shared memory: Y (2m - 1), the side cells, and
+// X (m) when it does not live in registers
+__host__ __device__ inline int warp_words(int m, bool x_shared) {
+  return 2 * m - 1 + SIDE + (x_shared ? m : 0);
 }
 
-__device__ __forceinline__ float2 cmac(float2 acc, float2 p, float2 q) {
-  acc.x += p.x * q.x - p.y * q.y;
-  acc.y += p.x * q.y + p.y * q.x;
-  return acc;
+// x + kap y
+__device__ __forceinline__ float2 cmad(float2 x, float2 kap, float2 y) {
+  return make_float2(x.x + kap.x * y.x - kap.y * y.y,
+                     x.y + kap.x * y.y + kap.y * y.x);
 }
 
-// one step's update of a[j] and R[j + off] with the old values
-__device__ __forceinline__ void update(float2& a, float2* r_at, float2 kap) {
-  const float2 r = *r_at, ao = a;
-  a = make_float2(ao.x + kap.x * r.x - kap.y * r.y,
-                  ao.y + kap.x * r.y + kap.y * r.x);
-  *r_at = make_float2(r.x + kap.x * ao.x + kap.y * ao.y,
-                      r.y + kap.x * ao.y - kap.y * ao.x);
+// y + conj(kap) x
+__device__ __forceinline__ float2 cmad_conj(float2 y, float2 kap, float2 x) {
+  return make_float2(y.x + kap.x * x.x + kap.y * x.y,
+                     y.y + kap.x * x.y - kap.y * x.x);
 }
 
-// I > 0: a in I register slots a lane; I == 0: a in shared memory
+// -u / e, as u times one reciprocal
+__device__ __forceinline__ float2 next_kappa(float2 u, float e) {
+  const float r = __fdividef(1.f, e);
+  return make_float2(-u.x * r, -u.y * r);
+}
+
+// Entry j's update at step k (old values in, new out; live: j < m); the
+// pivot's X becomes kappa. The lanes of the two entries the next kappa
+// reads also write them to the side cells of step k + 1's parity.
+__device__ __forceinline__ void update(int j, int k, bool live, float2 kap,
+                                       float2& xr, float2 yv, float2* yat,
+                                       float2* side) {
+  const float2 xo = xr;
+  xr = j == k ? kap : cmad(xo, kap, yv);
+  const float2 yn = cmad_conj(yv, kap, xo);
+  if (live) *yat = yn;
+  if (j == k + 2) side[(k + 1) & 1] = xr;
+  if (j == k + 1) side[2 + ((k + 1) & 1)] = yn;
+}
+
+// I > 0: X in I register slots a lane; I == 0: X in shared memory
 template <int I>
 __global__ void __launch_bounds__(WARPS * WARP)
 levinson_kernel(const float2* __restrict__ c, float2* __restrict__ x, int B,
@@ -84,53 +121,71 @@ levinson_kernel(const float2* __restrict__ c, float2* __restrict__ x, int B,
   const int warp = threadIdx.x / WARP;
   const long long sys = (long long)blockIdx.x * (blockDim.x / WARP) + warp;
   if (sys >= B) return;                   // the whole warp: no block barrier
-  float2* cs = sm + (size_t)warp * warp_words(m, I == 0);
-  float2* R = cs + m;
-  float2* as = R + m + 1;
+  float2* Y = sm + (size_t)warp * warp_words(m, I == 0);
+  float2* side = Y + 2 * m - 1;           // U[2], then V[2]
+  float2* Xs = side + SIDE;
   const float2* cg = c + sys * m;
-  for (int t = lane; t < m; t += WARP) cs[t] = cg[t];
-  for (int t = lane; t <= m; t += WARP)   // ar_1[1] = 1 at R[1 + m - 1]
-    R[t] = make_float2(t == m ? 1.f : 0.f, 0.f);
+  const float2 zero = make_float2(0.f, 0.f), one = make_float2(1.f, 0.f);
+  for (int t = lane; t < 2 * m - 1; t += WARP)
+    Y[t] = t < m ? zero : cg[t - m];
+  if (lane == 0) {                        // step 1 reads u_1[2], v_1[2]
+    side[1] = m > 2 ? cg[2] : zero;
+    side[3] = m > 1 ? cg[1] : zero;
+  }
   float2 reg[I > 0 ? I : 1];
   if constexpr (I > 0) {
 #pragma unroll
-    for (int i = 0; i < I; ++i)
-      reg[i] = make_float2(lane + WARP * i == 0 ? 1.f : 0.f, 0.f);
+    for (int i = 0; i < I; ++i) {
+      const int j = lane + WARP * i;
+      reg[i] = j == 0 ? one : (j < m ? cg[j] : zero);
+    }
   } else {
-    for (int t = lane; t < m; t += WARP)
-      as[t] = make_float2(t == 0 ? 1.f : 0.f, 0.f);
+    for (int t = lane; t < m; t += WARP) Xs[t] = t == 0 ? one : cg[t];
   }
+  float e = cg[0].x;
+  float2 kap = m > 1 ? next_kappa(cg[1], e) : zero;
   __syncwarp();
-  float e = cs[0].x;
 
+#pragma unroll 2
   for (int k = 1; k < m; ++k) {
-    float2 acc = make_float2(0.f, 0.f);
+    float2* Yk = Y + (m - k);
+    const float2 uk = side[k & 1], vk = side[2 + (k & 1)];
+    const float e_next = e * (1.f - (kap.x * kap.x + kap.y * kap.y));
+    // u_{k+1}[k+1] = u_k[k+1] + kappa v_k[k+1]
+    const float2 kap_next = next_kappa(cmad(uk, kap, vk), e_next);
     if constexpr (I > 0) {
+      // every slot but the last holds entries below m
+      float2 y[I];
 #pragma unroll
       for (int i = 0; i < I; ++i) {
         const int j = lane + WARP * i;
-        if (WARP * i < k && j < k) acc = cmac(acc, reg[i], cs[k - j]);
+        y[i] = i < I - 1 || j < m ? Yk[j] : zero;
       }
-    } else {
-      for (int j = lane; j < k; j += WARP) acc = cmac(acc, as[j], cs[k - j]);
-    }
-#pragma unroll
-    for (int s = WARP / 2; s > 0; s >>= 1) {
-      acc.x += __shfl_xor_sync(FULL, acc.x, s);
-      acc.y += __shfl_xor_sync(FULL, acc.y, s);
-    }
-    const float2 kap = make_float2(-acc.x / e, -acc.y / e);
-    float2* Rk = R + (m - k);
-    if constexpr (I > 0) {
 #pragma unroll
       for (int i = 0; i < I; ++i) {
         const int j = lane + WARP * i;
-        if (WARP * i <= k && j <= k) update(reg[i], Rk + j, kap);
+        update(j, k, i < I - 1 || j < m, kap, reg[i], y[i], Yk + j, side);
       }
     } else {
-      for (int j = lane; j <= k; j += WARP) update(as[j], Rk + j, kap);
+      constexpr int U = 4;                // entries a lane in flight
+      for (int j0 = lane; j0 < m; j0 += U * WARP) {
+        float2 xv[U], y[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * WARP;
+          xv[u] = j < m ? Xs[j] : zero;
+          y[u] = j < m ? Yk[j] : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * WARP;
+          update(j, k, j < m, kap, xv[u], y[u], Yk + j, side);
+          if (j < m) Xs[j] = xv[u];
+        }
+      }
     }
-    e *= 1.f - (kap.x * kap.x + kap.y * kap.y);
+    e = e_next;
+    kap = kap_next;
     __syncwarp();
   }
 
@@ -143,20 +198,23 @@ levinson_kernel(const float2* __restrict__ c, float2* __restrict__ x, int B,
     }
   } else {
     for (int j = lane; j < m; j += WARP)
-      xg[j] = make_float2(as[j].x / e, as[j].y / e);
+      xg[j] = make_float2(Xs[j].x / e, Xs[j].y / e);
   }
 }
 
 using Kernel = void (*)(const float2*, float2*, int, int);
-const Kernel KERNELS[VARIANTS] = {levinson_kernel<1>, levinson_kernel<2>,
-                                  levinson_kernel<4>, levinson_kernel<8>,
-                                  levinson_kernel<16>, levinson_kernel<0>};
+// KERNELS[I - 1] holds X in I register slots, KERNELS[MAX_SLOTS] in shared
+const Kernel KERNELS[VARIANTS] = {
+    levinson_kernel<1>,  levinson_kernel<2>,  levinson_kernel<3>,
+    levinson_kernel<4>,  levinson_kernel<5>,  levinson_kernel<6>,
+    levinson_kernel<7>,  levinson_kernel<8>,  levinson_kernel<9>,
+    levinson_kernel<10>, levinson_kernel<11>, levinson_kernel<12>,
+    levinson_kernel<13>, levinson_kernel<14>, levinson_kernel<15>,
+    levinson_kernel<16>, levinson_kernel<0>};
 
-// the variant for m: the fewest register slots that hold a, else shared
+// the variant for m: as many register slots as X needs, else shared
 int variant(int m) {
-  for (int v = 0; v < VARIANTS - 1; ++v)
-    if (m <= WARP << v) return v;
-  return VARIANTS - 1;
+  return m <= MAX_SLOTS * WARP ? (m + WARP - 1) / WARP - 1 : MAX_SLOTS;
 }
 
 // The largest dynamic shared memory a block may opt into, once per device.

@@ -14,10 +14,17 @@ step (``detect/trackers.py:189`` ``multitarget_step``, its slot loop a
 
 Kernel (``csrc/tracker.cu``, CUDA C++ for sm_90a, built by
 ``ops/cuda_build.py`` with ``-fmad=false`` and bound with ctypes): one CTA
-a channel, the table and a frame's candidates in shared memory, a block
-reduction a slot for the association, a thread a slot for the Kalman
-transitions; its note says what bounds it. On CPU tensors the wrapper runs
-``trackers.multitarget_step_plain`` (the slot loop, a channel and a frame
+a channel, the table and a frame's candidates in shared memory; every
+tracked slot's gates at once as bitmasks over the candidates, then the
+association chain on one warp over the pool's bitmask (votes and warp
+reductions, no block barrier), two slots a warp for the Kalman
+transitions; its note says what bounds it. A channel's table, its gates
+and masks and a frame's candidates must fit the card's shared memory
+(227 KB a block on an H100): at K = 540 candidates (the FM stream) at
+most 273 slots, at 10 slots at most K = 16,640, and never K above
+32,768; beyond that the wrapper raises ValueError with the limits at the
+call's K and N (``shared_memory_limits``). On CPU tensors the wrapper
+runs ``trackers.multitarget_step_plain`` (the slot loop, a channel and a frame
 at a time); on CUDA tensors it always launches the kernel, on the tensors'
 card and current stream, and raises if the build or the launch fails.
 ``multitarget_step_kernel.launches`` counts kernel launches.
@@ -61,6 +68,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.tracker_launch.restype = ctypes.c_int
+    lib.tracker_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tracker_smem_bytes.restype = ctypes.c_longlong
+    lib.tracker_smem_optin.argtypes = [ctypes.c_int]
+    lib.tracker_smem_optin.restype = ctypes.c_int
     lib.tracker_error_string.argtypes = [ctypes.c_int]
     lib.tracker_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,6 +136,50 @@ def _check(table, cand, valid, n_tracks: int):
     return c, t, k, leaves
 
 
+def _largest(fits, most: int) -> int:
+    """The largest n in 1..most with fits(n) (fits monotone), 0 if none."""
+    lo, hi = 0, most
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def shared_memory_limits(k: int, n_tracks: int, device: int) -> dict:
+    """What a launch for K candidates and n_tracks slots asks of card
+    ``device``'s shared memory: its ``bytes`` (-1 for K above 32768), the
+    card's opt-in limit a block (``optin_bytes``), and the most tracks at
+    this K and the most candidates at this n_tracks that fit."""
+    lib = _library()
+    most = lib.tracker_smem_optin(device)
+    if most < 0:
+        raise RuntimeError("tracker kernel: no shared-memory limit for card "
+                           f"{device}: " + lib.tracker_error_string(
+                               -most).decode())
+
+    def fits(kk, nn):
+        return 0 <= lib.tracker_smem_bytes(kk, nn) <= most
+
+    return dict(bytes=lib.tracker_smem_bytes(k, n_tracks), optin_bytes=most,
+                most_tracks=_largest(lambda nn: fits(k, nn), most),
+                most_k=_largest(lambda kk: fits(kk, n_tracks), 32768))
+
+
+@functools.cache
+def _check_fits(k: int, n_tracks: int, device: int) -> None:
+    """Raise ValueError, naming the limits, where K candidates and n_tracks
+    slots ask for more shared memory than the card lets a block have."""
+    lim = shared_memory_limits(k, n_tracks, device)
+    if not 0 <= lim["bytes"] <= lim["optin_bytes"]:
+        raise ValueError(
+            f"the tracker kernel holds a channel's table and a frame's "
+            f"candidates in shared memory: K={k} candidates and "
+            f"n_tracks={n_tracks} ask for {lim['bytes']} bytes (-1: K above "
+            f"32768), card {device} allows {lim['optin_bytes']}; at K={k} it "
+            f"takes at most {lim['most_tracks']} tracks, at "
+            f"n_tracks={n_tracks} at most K={lim['most_k']}")
+
+
 def _empty_history(t: int, leaves, device) -> dict:
     out = {}
     for (path, _, dtype), leaf in zip(LEAVES, leaves):
@@ -146,6 +201,7 @@ def multitarget_step_kernel(table, cand: torch.Tensor, valid: torch.Tensor,
     if cand.device.type != "cuda":
         from passiveradar_torch.detect.trackers import multitarget_step_plain
         return multitarget_step_plain(table, cand, valid, n_tracks)
+    _check_fits(k, n_tracks, cand.get_device())
     hist = _empty_history(t, leaves, cand.device)
     outs = [_leaf(hist, path) for path, _, _ in LEAVES]
     lib = _library()

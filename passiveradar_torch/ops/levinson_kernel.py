@@ -17,9 +17,13 @@ order (:162) that XLA compiles into one while loop, where the port's eager
 loop made ~14 small launches a step, ~2,600 a call at FM.
 
 Kernel (``csrc/levinson.cu``, CUDA C++ for sm_90a, built by
-``ops/cuda_build.py`` and bound with ctypes): one warp a system, a in
-registers (in shared memory above m = 512), c and ar in shared memory, one
-warp-shuffle reduction a step; its note says what bounds it. The wrapper
+``ops/cuda_build.py`` and bound with ctypes): the Schur–Levinson
+recursion, which carries the residual correlations u = a∗c and v = ar∗c
+beside the polynomials so that κ = −u[k]/e needs no sum; one warp a
+system, a and u in registers (in shared memory above m = 512), ar and v in
+shared memory; the next κ's two inputs reach every lane through shared
+side cells, so a step has no shuffle, only one ``__syncwarp``; its note
+says what bounds it. The wrapper
 checks dtype, shape and contiguity first, on every device; on a CPU tensor
 it then runs ``levinson_first_col_plain`` without loading the library, on a
 CUDA tensor it always launches the kernel, on the tensor's card and current
@@ -36,8 +40,8 @@ import torch
 
 from passiveradar_torch.ops import cuda_build
 
-# the largest order a launch takes: one warp's c, ar and a in shared memory
-# (csrc/levinson.cu MAX_M)
+# the largest order a launch takes: one warp's ar, v, a and u in shared
+# memory (csrc/levinson.cu MAX_M)
 MAX_ORDER = 8192
 
 
@@ -112,7 +116,7 @@ def levinson_first_col_kernel(c: torch.Tensor) -> torch.Tensor:
     b, m = c.shape
     if m > MAX_ORDER:
         raise ValueError(f"order m = {m}: the kernel takes m <= {MAX_ORDER} "
-                         "(one warp's c, ar and a in shared memory)")
+                         "(one warp's ar, v, a and u in shared memory)")
     x = torch.empty((b, m), dtype=torch.complex64, device=c.device)
     lib = _library()
     err = lib.levinson_launch(c.data_ptr(), x.data_ptr(), b, m,

@@ -9,6 +9,7 @@ the fixture, at run time). On a machine with the card:
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -826,6 +827,125 @@ def test_tracker_kernel_matches_plain(cuda, channels, frames):
     assert (want["status"] > 0).any()
 
 
+def _scene_table(statuses, rng, points):
+    """One channel's (N, …) table with the given statuses: a free slot as
+    init_tracks makes it; a live slot at one of ``points`` (its
+    measurement), its estimate a little off, a random history and
+    lifetime, and a non-diagonal S."""
+    from passiveradar_torch.detect import trackers as tt
+    slots = []
+    for i, st in enumerate(statuses):
+        if st == 0:
+            slots.append(tt.make_track(None, "cpu"))
+            continue
+        p = np.asarray(points[i % len(points)], np.float32)
+        tr = tt.make_track(torch.from_numpy(p), "cpu")
+        tr["status"] = torch.tensor(st, dtype=torch.int32)
+        tr["lifetime"] = torch.tensor(int(rng.integers(1, 12)),
+                                      dtype=torch.int32)
+        tr["estimate"] = torch.from_numpy(
+            (p + rng.normal(0, 1.0, 2)).astype(np.float32))
+        tr["history"] = torch.from_numpy(
+            (rng.random(20) < 0.6).astype(np.float32))
+        a, b, c = rng.uniform(1, 6), rng.uniform(-0.8, 0.8), \
+            rng.uniform(1, 9)
+        tr["kalman"]["S"] = torch.tensor([[a, b], [b, c]],
+                                         dtype=torch.float32)
+        slots.append(tr)
+    return tt._stack(slots)
+
+
+def _scene_candidates(rng, k, points, spread=3.0):
+    """(3, k) float32 candidates: half in clusters around ``points``, the
+    rest over the map (range 0…60 km, Doppler ±30 Hz), strengths
+    decreasing."""
+    near = rng.integers(0, len(points), k // 2)
+    pts = np.asarray(points, np.float32)[near] + rng.normal(
+        0, spread, (k // 2, 2))
+    far = np.stack([rng.uniform(0, 60, k - k // 2),
+                    rng.uniform(-30, 30, k - k // 2)], 1)
+    xy = np.concatenate([pts, far])[rng.permutation(k)]
+    strength = np.sort(rng.random(k))[::-1]
+    return np.stack([xy[:, 0], xy[:, 1], strength]).astype(np.float32)
+
+
+ASSOCIATION_SCENES = ("k20", "k75", "all_invalid", "ties", "one_candidate",
+                      "status_mixes", "c8_t16")
+
+
+@functools.cache
+def _association_scenes() -> dict:
+    """The tracker step's association cases by name, each (table (C, N, …),
+    cand (C, T, 3, K), valid (C, T, K), N) on the CPU, made with numpy from
+    a seed: K < 32; K not a multiple of 32; every candidate invalid;
+    distance ties in a preliminary gate (four candidates at distance 5 from
+    the origin, in four lanes, one of them in its lane's second word, and
+    none nearer); a free slot with exactly one candidate; every mix of
+    three statuses (27 channels); and 8 channels over 16 frames of CFAR
+    maps (K = 300)."""
+    from passiveradar_torch.detect import trackers as tt
+    from passiveradar_torch.detect.measurements import get_measurements
+    rng = np.random.default_rng(2024)
+    points = [(12.0, 5.0), (30.0, -8.0), (45.0, 14.0)]
+    scenes = {}
+
+    def one_frame(name, tables, cands, valids, n):
+        scenes[name] = (tt._stack(tables),
+                        torch.from_numpy(np.stack(cands)[:, None].copy()),
+                        torch.from_numpy(np.stack(valids)[:, None].copy()),
+                        n)
+
+    for k in (20, 75):
+        one_frame(f"k{k}", [_scene_table((2, 1, 0, 2, 1, 0), rng, points)],
+                  [_scene_candidates(rng, k, points)],
+                  [rng.random(k) < 0.85], 6)
+    one_frame("all_invalid",
+              [_scene_table((2, 1, 0, 1, 0, 0), rng, points)],
+              [_scene_candidates(rng, 40, points)], [np.zeros(40, bool)], 6)
+    cand = _scene_candidates(rng, 64, [(40.0, -20.0)])
+    near = np.hypot(cand[0], cand[1]) < 8
+    cand[0, near] += 20                   # nothing else near the origin
+    for idx, (r, d) in {2: (5, 0), 33: (4, 3), 8: (3, 4), 40: (0, 5),
+                        0: (6, 6), 20: (7.5, 1)}.items():
+        cand[:2, idx] = (r, d)
+    one_frame("ties", [_scene_table((1, 0, 0, 2), rng,
+                                    [(3.5, 3.5), (40.0, -20.0)])],
+              [cand], [np.ones(64, bool)], 4)
+    valid = np.zeros(50, bool)
+    valid[17] = True
+    one_frame("one_candidate", [_scene_table((0, 0, 0, 0), rng, points)],
+              [_scene_candidates(rng, 50, points)], [valid], 4)
+    mixes = [(a, b, c) for a in range(3) for b in range(3) for c in range(3)]
+    one_frame("status_mixes", [_scene_table(m, rng, points) for m in mixes],
+              [_scene_candidates(rng, 48, points) for _ in mixes],
+              [rng.random(48) < 0.9 for _ in mixes], 3)
+    maps = torch.from_numpy(_tracker_scene(7, 8, 16))
+    cand, valid = get_measurements(maps, torch.tensor((256.0, 60.0)), 300)
+    scenes["c8_t16"] = (tt.init_tracks(10, "cpu", 8), cand.contiguous(),
+                        valid.contiguous(), 10)
+    return scenes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ASSOCIATION_SCENES)
+def test_tracker_kernel_association_scenes(cuda, scene):
+    """The tracker kernel against its plain version on the same card
+    tensors for each association case of tests/test_torch_tracker_step.py:
+    the discrete state equal, the floats within tests/test_torch_detect.py's
+    tolerances (chip_smoke.py TRACKER_TOL)."""
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+    table, cand, valid, n = _association_scenes()[scene]
+    table = tt._map(lambda a: a.to(cuda), table)
+    cand, valid = cand.to(cuda), valid.to(cuda)
+    before = trk.multitarget_step_kernel.launches
+    got = tt.to_host(trk.multitarget_step_kernel(table, cand, valid, n))
+    assert trk.multitarget_step_kernel.launches == before + 1
+    want = tt.to_host(tt.multitarget_step_plain(table, cand, valid, n))
+    torch.cuda.synchronize()
+    _assert_tracker_tables(got, want)
+
+
 @pytest.mark.cuda
 def test_tracker_step_makes_no_host_sync(cuda):
     """multitarget_step on the card (the batched candidates and one kernel
@@ -849,6 +969,50 @@ def test_tracker_step_makes_no_host_sync(cuda):
     assert got["status"].shape == (8, 10) and got_one["status"].shape == (10,)
     _assert_tracker_tables(tt.to_host(tt._slot(got, 3)), tt.to_host(got_one))
     assert (tt.to_host(table)["status"] == 0).all()
+
+
+def _tracker_limit_inputs(rng, k, n, frames, dev):
+    """One channel's free table of n slots and ``frames`` frames of k
+    _scene_candidates, 90% of them valid, on ``dev``."""
+    from passiveradar_torch.detect import trackers as tt
+    points = [(12.0, 5.0), (30.0, -8.0), (45.0, 14.0)]
+    cand = np.stack([_scene_candidates(rng, k, points)
+                     for _ in range(frames)])[None]
+    valid = rng.random((1, frames, k)) < 0.9
+    return (tt.init_tracks(n, dev, 1), torch.from_numpy(cand.copy()).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fm_candidates", "ten_slots"])
+def test_tracker_kernel_at_its_shared_memory_limit(cuda, case):
+    """The largest launch the card's shared memory holds: at K = 540 (the
+    FM stream's candidates) the most slots, at 10 slots the most
+    candidates (tracker_kernel.shared_memory_limits). Over
+    two frames from free tables the kernel equals its plain version; one
+    slot or candidate more raises ValueError, naming the limits, and
+    launches nothing."""
+    from passiveradar_torch.detect import tracker_kernel as trk
+    from passiveradar_torch.detect import trackers as tt
+    lim = trk.shared_memory_limits(540, 10, cuda.index)
+    if case == "fm_candidates":
+        k, n = 540, lim["most_tracks"]
+        over = (k, n + 1)
+    else:
+        k, n = lim["most_k"], 10
+        over = (k + 1, n)
+    assert n >= 10 and k >= 540
+    rng = np.random.default_rng(k + n)
+    table, cand, valid = _tracker_limit_inputs(rng, k, n, 2, cuda)
+    got = tt.to_host(trk.multitarget_step_kernel(table, cand, valid, n))
+    want = tt.to_host(tt.multitarget_step_plain(table, cand, valid, n))
+    _assert_tracker_tables(got, want)
+    assert (got["status"][1] != 0).any()
+    table, cand, valid = _tracker_limit_inputs(rng, *over, 1, cuda)
+    before = trk.multitarget_step_kernel.launches
+    with pytest.raises(ValueError, match="at most"):
+        trk.multitarget_step_kernel(table, cand, valid, over[1])
+    assert trk.multitarget_step_kernel.launches == before
 
 
 def _autocorr_systems(rng, systems, m, n=4096):

@@ -3,6 +3,12 @@
 * ``ops/levinson_kernel.levinson_first_col_plain`` against the JAX
   package's ``levinson_first_col`` at the FM width (50 systems of m = 185),
   on a guarded all-zero system and at m ∈ {1, 2, 33, 210};
+* a numpy transcription of the kernel's Schur–Levinson step
+  (``csrc/levinson.cu``) in complex64 against the plain loop, and no
+  farther than LEVINSON_VS_F64 times the plain loop from the complex128
+  recursion, on the same systems;
+* (marked ``cuda``, on the card) the kernel at every register-variant
+  boundary against the plain loop and the complex128 recursion;
 * the wrapper's refusals, made before any library load;
 * the constant tables of the LS stage, now made once per device and
   shape, bit-equal to the per-call tables they replace;
@@ -27,6 +33,9 @@ from passiveradar_torch.ops import levinson_kernel as lk  # noqa: E402
 from passiveradar_torch.ops import mixer as tmixer  # noqa: E402
 
 TOL = 1e-4           # tests/test_torch_ops.py's Levinson bound
+# a float32 recursion's distance from the complex128 one, over the plain
+# float32 loop's (chip_smoke.py LEVINSON_VS_F64)
+LEVINSON_VS_F64 = 2.0
 BINS = (0, 1, -1, 2, -2)
 # tests/test_torch_pipeline.py's TINY geometry: 16,384-sample CPIs
 TINY = dict(
@@ -65,6 +74,80 @@ def _echo_autocorr(rng, systems: int, m: int, n: int = 4096) -> np.ndarray:
         spec = np.fft.fft(s, 2 * n)
         out[b] = np.fft.ifft(spec * spec.conj())[:m]
     return out
+
+
+def _per_system_rel(got, want):
+    """Largest distance of one system's x from the reference, over that
+    system's peak |x| (chip_smoke.py per_system_rel)."""
+    w = np.maximum(np.abs(want).max(-1), 1e-30)
+    return float((np.abs(got - want).max(-1) / w).max())
+
+
+def _schur_levinson(c: np.ndarray) -> np.ndarray:
+    """csrc/levinson.cu's recursion in numpy complex64, over a batch: X
+    holds a below the step k and the residual u = a∗c from k on, Y (at the
+    offset m − k) holds ar below k and v = ar∗c from k on; each step forms
+    the next κ from u[k+1] and v[k+1] alone, as −u·(1/e) (the kernel takes
+    the reciprocal approximately), then updates every entry the same way,
+    the pivot's X becoming κ."""
+    c = np.ascontiguousarray(c, np.complex64)
+    b, m = c.shape
+    one = np.float32(1)
+    x = c.copy()
+    x[:, 0] = 1
+    y = np.zeros((b, 2 * m - 1), np.complex64)
+    y[:, m:] = c[:, :m - 1]
+    e = c[:, 0].real.copy()
+    kap = np.zeros(b, np.complex64)
+    if m > 1:
+        kap = (-x[:, 1] * (one / e)).astype(np.complex64)
+    j = np.arange(m)
+    for k in range(1, m):
+        e_next = e * (one - (kap.real * kap.real + kap.imag * kap.imag))
+        kap_next = kap
+        if k + 1 < m:
+            u = x[:, k + 1] + kap * y[:, m + 1]
+            kap_next = (-u * (one / e_next)).astype(np.complex64)
+        yk = y[:, j + m - k]
+        x, y[:, j + m - k] = x + kap[:, None] * yk, \
+            yk + kap.conj()[:, None] * x
+        x[:, k] = kap
+        e, kap = e_next, kap_next
+    return x / e[:, None]
+
+
+def _levinson_cases():
+    """(name, (B, m) complex64 systems): the FM width, the guarded zero
+    system in a batch of live ones (as a margin frame's bins sit among the
+    stage's systems), and m ∈ {1, 2, 33, 210}."""
+    rng = np.random.default_rng(15)
+    zero = tc._guard(torch.from_numpy(np.concatenate([
+        np.zeros((1, 64), np.complex64), _echo_autocorr(rng, 6, 64)]))
+    ).numpy()
+    cases = [("fm", _echo_autocorr(np.random.default_rng(14), 50, 185)),
+             ("guarded_zero", zero)]
+    cases += [(f"m{m}", _echo_autocorr(np.random.default_rng(100 + m), 6, m))
+              for m in (1, 2, 33, 210)]
+    return cases
+
+
+@pytest.mark.parametrize("name,c", _levinson_cases(),
+                         ids=[n for n, _ in _levinson_cases()])
+def test_schur_levinson_transcription_matches_plain(name, c):
+    """The kernel's recursion, transcribed: within TOL of the plain loop,
+    and no farther than LEVINSON_VS_F64 times the plain loop from the
+    complex128 recursion (the chip's gate); the guarded zero system's x is
+    e₀/1e-25, as the plain loop's."""
+    got = _schur_levinson(c)
+    plain = lk.levinson_first_col_plain(torch.from_numpy(c)).numpy()
+    f64 = lk.levinson_first_col_plain(torch.from_numpy(
+        c.astype(np.complex128))).numpy()
+    assert np.all(np.isfinite(got))
+    assert _per_system_rel(got, plain) < TOL
+    assert _per_system_rel(got, f64) <= \
+        LEVINSON_VS_F64 * _per_system_rel(plain, f64)
+    if name == "guarded_zero":
+        np.testing.assert_array_equal(got[0], plain[0])
 
 
 def test_levinson_plain_matches_jax_at_fm_width():
@@ -139,6 +222,36 @@ def test_levinson_wrapper_on_cpu_is_the_plain_loop(monkeypatch):
     assert torch.equal(lk.levinson_first_col_kernel(c), want)
     assert torch.equal(tc.levinson_first_col(c), want)
     assert lk.levinson_first_col_kernel.launches == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 32, 33, 64, 65, 512, 513, 2048])
+def test_levinson_kernel_at_variant_boundaries(cuda, m):
+    """The kernel on either side of each register variant's order (32 I
+    entries a lane, I = 1, 2, … 16) and in the shared variant (513, 2048),
+    float32, 8 systems: one launch, finite, within TOL of the plain loop
+    on the card, and no farther than LEVINSON_VS_F64 times the plain loop
+    from the complex128 recursion."""
+    c = torch.from_numpy(_echo_autocorr(np.random.default_rng(200 + m), 8,
+                                        m)).to(cuda)
+    before = lk.levinson_first_col_kernel.launches
+    got = lk.levinson_first_col_kernel(c)
+    assert lk.levinson_first_col_kernel.launches == before + 1
+    plain = lk.levinson_first_col_plain(c)
+    f64 = lk.levinson_first_col_plain(c.to(torch.complex128))
+    torch.cuda.synchronize()
+    got, plain, f64 = (x.cpu().numpy() for x in (got, plain, f64))
+    assert np.all(np.isfinite(got))
+    assert _per_system_rel(got, plain) < TOL
+    assert _per_system_rel(got, f64) <= \
+        LEVINSON_VS_F64 * _per_system_rel(plain.astype(np.complex128), f64)
 
 
 @pytest.mark.parametrize("n,m,peek,fs", [(8192, 34, 10, 8192.0),

@@ -4,7 +4,11 @@ against the JAX package.
 
 Scenes are tests/test_detect.py's (one target, two targets, coast-then-die,
 as CFAR maps; the wideband echo of tests/test_torch_wideband.py), none on a
-gate edge.
+gate edge. On tests/test_torch_cuda.py's association scenes, which sit on
+the association's edges (ties, one candidate, none valid, every status
+mix), the plain step is held against the JAX package's _associate and
+_track_transition, and a numpy transcription of the kernel's bitmask
+association (csrc/tracker.cu) discretely equal to the plain step.
 Tolerances, as tests/test_torch_detect.py: status, lifetime and history
 exactly equal; estimates and measurements within atol 1e-4, rtol 1e-6; the
 Kalman x, P, S within atol 1e-4, rtol 1e-5 (float32 4×4 products in
@@ -14,8 +18,10 @@ itself (a stack against its frames, the channel table against a table a
 channel) is exact.
 """
 
+import functools
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +45,8 @@ from passiveradar_torch.detect import measurements as tm  # noqa: E402
 from passiveradar_torch.detect import tracker_kernel as trk  # noqa: E402
 from passiveradar_torch.detect import trackers as tt  # noqa: E402
 from tests.test_pipeline import TINY, _make_frames  # noqa: E402
+from tests.test_torch_cuda import (  # noqa: E402
+    ASSOCIATION_SCENES, _association_scenes)
 from tests.test_torch_trackers import (  # noqa: E402
     D_EXT, R_EXT, _coast_then_die, _one_target, _two_targets)
 from tests.test_torch_wideband import (  # noqa: E402
@@ -331,6 +339,233 @@ def test_stream_processors_warm_the_tracker_and_keep_their_tables(
             _assert_tables_agree(g.tracks, _np(w.tracks), f"frame {f}")
 
 
+# ------------------------------------------- the kernel's association
+
+def _words(bits: np.ndarray, wpl: int) -> np.ndarray:
+    """A (K,) bool set as the kernel's lane-major bitmask: candidate
+    k = 1024 q + 32 b + l is bit b of word [q, l]."""
+    w = np.zeros((wpl, 32), np.uint32)
+    for k in np.flatnonzero(bits):
+        w[k // 1024, k % 32] |= np.uint32(1 << (k // 32 % 32))
+    return w
+
+
+def _members(w: np.ndarray, lane: int):
+    """The candidates of one lane's words, in increasing order."""
+    return [1024 * q + 32 * b + lane for q in range(w.shape[0])
+            for b in range(32) if w[q, lane] >> np.uint32(b) & 1]
+
+
+def _first(w: np.ndarray) -> int:
+    """The lowest candidate of a set: each lane's first member, then the
+    least over the lanes (__ffs, __reduce_min_sync)."""
+    firsts = [m[0] for m in (_members(w, lane) for lane in range(32)) if m]
+    return min(firsts)
+
+
+def _bitmask_associate(table, cand, valid):
+    """csrc/tracker.cu's association for one channel and frame (its phases
+    a–d), in numpy: the order by rank; every tracked slot's gate and early
+    gate as masks; the chain over the pool's words (a tracked slot keeps
+    gate AND pool and drops its early gate if that set is not empty; a
+    free slot counts the pool, takes its first member, and drops what lies
+    within 10 / 12 of it, or, with one member, everything); then each
+    tracked slot's choice from the set it kept: the first, or the nearest
+    to the origin by each lane's (distance, index) minimum and a least
+    distance, then a least index, over the lanes. Returns found (N,) and
+    the chosen measurement (N, 2), NaN where nothing was found."""
+    f32 = np.float32
+    status = table["status"]
+    n, k = len(status), cand.shape[1]
+    r, d = cand[0], cand[1]
+    wpl = -(-k // 1024)
+    prio = np.where(status == 2, 0, np.where(status == 1, 1, 2))
+    rank = [sum(int(prio[j] < prio[i] or (prio[j] == prio[i] and j < i))
+                for j in range(n)) for i in range(n)]
+    order = np.empty(n, int)
+    order[rank] = np.arange(n)
+    gate, early = {}, {}
+    for i in np.flatnonzero(status != 0):
+        lm, le = table["measurement"][i], table["estimate"][i]
+        if status[i] == 1:
+            e = (np.abs(r - lm[0]) < f32(5)) & (np.abs(d - lm[1]) < f32(24))
+            g = e
+        else:
+            e = (np.abs(r - le[0]) < f32(4)) & (np.abs(d - le[1]) < f32(20))
+            (s00, s01), (s10, s11) = table["kalman"]["S"][i]
+            det = s00 * s11 - s01 * s10
+            i00, i01, i10, i11 = s11 / det, -s01 / det, -s10 / det, \
+                s00 / det
+            zr, zd = lm[0] - r, lm[1] - d
+            m2 = zr * (i00 * zr + i01 * zd) + zd * (i10 * zr + i11 * zd)
+            g = e & (m2 < f32(6))
+        gate[i], early[i] = _words(g, wpl), _words(e, wpl)
+    pool = _words(valid, wpl)
+    found = np.zeros(n, bool)
+    meas = np.full((n, 2), np.nan, np.float32)
+    for i in order:
+        if status[i] != 0:
+            gate[i] = gate[i] & pool
+            found[i] = gate[i].any()
+            if found[i]:
+                pool &= ~early[i]
+            continue
+        count = sum(bin(int(x)).count("1") for x in pool.ravel())
+        found[i] = count > 0
+        if not found[i]:
+            continue
+        choice = _first(pool)
+        meas[i] = r[choice], d[choice]
+        if count == 1:
+            pool[:] = 0
+            continue
+        for lane in range(32):
+            for j in _members(pool, lane):
+                if np.abs(r[j] - meas[i, 0]) < f32(10) and \
+                        np.abs(d[j] - meas[i, 1]) < f32(12):
+                    pool[j // 1024, lane] &= ~np.uint32(1 << (j // 32 % 32))
+    for i in np.flatnonzero(found & (status != 0)):
+        if status[i] == 2:
+            choice = _first(gate[i])
+        else:
+            best = []
+            for lane in range(32):
+                m = _members(gate[i], lane)
+                if m:
+                    dist = np.sqrt(r[m] * r[m] + d[m] * d[m])
+                    j = int(np.argmin(dist))         # first of its least
+                    best.append((dist[j].view(np.uint32), m[j]))
+            least = min(key for key, _ in best)
+            choice = min(j for key, j in best if key == least)
+        meas[i] = r[choice], d[choice]
+    return found, meas
+
+
+def _next_status(table, found):
+    """The status each slot takes (_track_transition's rules on the
+    pre-update history and lifetime)."""
+    status, hist = table["status"], table["history"]
+    old = table["lifetime"] > 4
+    s10, s20 = hist[:, :10].sum(1), hist.sum(1)
+    prelim = np.where(old & (s10 < 6), 0, np.where(old & (s10 > 8), 2, 1))
+    conf = np.where(old & (s20 < 4), 0, 2)
+    return np.where(status == 0, np.where(found, 1, 0),
+                    np.where(status == 1, prelim, conf))
+
+
+@pytest.mark.parametrize("scene", ASSOCIATION_SCENES)
+def test_bitmask_association_equals_plain_step(scene):
+    """The transcription on every channel and frame of the scene, each
+    frame from the table the plain step left: the plain step's statuses,
+    its found flags (a free slot turning preliminary, a live slot's newest
+    history entry) and its chosen measurements, exactly."""
+    table, cand, valid, n = _association_scenes()[scene]
+    hist = tt.to_host(tt.multitarget_step_plain(table, cand, valid, n))
+    start = tt.to_host(table)
+    n_found = 0
+    for c in range(cand.shape[0]):
+        for t in range(cand.shape[1]):
+            where = f"{scene}: channel {c}, frame {t}"
+            before = tt._slot(start if t == 0 else tt._slot(hist, t - 1), c)
+            after = tt._slot(tt._slot(hist, t), c)
+            found, meas = _bitmask_associate(before, cand[c, t].numpy(),
+                                             valid[c, t].numpy())
+            np.testing.assert_array_equal(
+                after["status"], _next_status(before, found), err_msg=where)
+            live = before["status"] != 0
+            np.testing.assert_array_equal(
+                found[live], after["history"][live, 0] == 1, err_msg=where)
+            np.testing.assert_array_equal(
+                found[~live], after["status"][~live] == 1, err_msg=where)
+            np.testing.assert_array_equal(
+                meas[found], after["measurement"][found], err_msg=where)
+            n_found += int(found.sum())
+    if scene == "all_invalid":
+        assert n_found == 0
+    else:
+        assert n_found > 0
+
+
+def test_bitmask_association_breaks_ties_by_index():
+    """In the ties scene the preliminary slot takes candidate 2, the least
+    index of four at distance 5 (2, 8, 33 and 40, in lanes 2, 8, 1 and 8),
+    and the one-candidate scene's first free slot empties the pool."""
+    table, cand, valid, _ = _association_scenes()["ties"]
+    found, meas = _bitmask_associate(tt.to_host(tt._slot(table, 0)),
+                                     cand[0, 0].numpy(), valid[0, 0].numpy())
+    assert found[0]
+    np.testing.assert_array_equal(meas[0], cand[0, 0, :2, 2].numpy())
+    table, cand, valid, _ = _association_scenes()["one_candidate"]
+    found, meas = _bitmask_associate(tt.to_host(tt._slot(table, 0)),
+                                     cand[0, 0].numpy(), valid[0, 0].numpy())
+    assert found.tolist() == [True, False, False, False]
+    np.testing.assert_array_equal(meas[0], cand[0, 0, :2, 17].numpy())
+
+
+@functools.partial(jax.jit, static_argnames="n")
+def _jax_frame(tracks, cand, valid, n):
+    """JAX multitarget_step's slot loop on given candidates: the slots in
+    its order (confirmed, preliminary, free, by slot), each through
+    _associate on the pool its predecessors left, then _track_transition.
+    Returns the table and each slot's found flag."""
+    prio = jnp.where(tracks["status"] == 2, 0,
+                     jnp.where(tracks["status"] == 1, 1, 2))
+    order = jnp.argsort(prio * n + jnp.arange(n))
+
+    def body(carry, s):
+        trks, avail = carry
+        i = order[s]
+        tr = jax.tree.map(lambda a: a[i], trks)
+        meas, found, avail = jt._associate(tr, cand, avail)
+        new = jt._track_transition(tr, meas, found)
+        trks = jax.tree.map(lambda a, v: a.at[i].set(v), trks, new)
+        return (trks, avail), found
+
+    (tracks, _), found = jax.lax.scan(body, (tracks, valid), jnp.arange(n))
+    return tracks, jnp.zeros(n, bool).at[order].set(found)
+
+
+@pytest.mark.parametrize("scene", ASSOCIATION_SCENES)
+def test_plain_step_association_matches_jax(scene):
+    """The plain step against the JAX package's _associate and
+    _track_transition on every channel and frame of each association
+    scene (distance ties, one candidate, every candidate invalid, the 27
+    status mixes, K < 32 and not a multiple of 32, 8 channels over 16
+    frames), each frame from the table the plain step left: its found flags
+    (a free slot turning preliminary, a live slot's newest history entry),
+    statuses and chosen measurements exactly, the whole table within this
+    file's tolerances."""
+    table, cand, valid, n = _association_scenes()[scene]
+    hist = tt.to_host(tt.multitarget_step_plain(table, cand, valid, n))
+    start = tt.to_host(table)
+    n_found = 0
+    for c in range(cand.shape[0]):
+        for t in range(cand.shape[1]):
+            where = f"{scene}: channel {c}, frame {t}"
+            before = tt._slot(start if t == 0 else tt._slot(hist, t - 1), c)
+            after = tt._slot(tt._slot(hist, t), c)
+            want, found = _jax_frame(
+                jax.tree.map(jnp.asarray, before), jnp.asarray(cand[c, t]),
+                jnp.asarray(valid[c, t]), n)
+            want, found = _np(want), np.asarray(found)
+            live = before["status"] != 0
+            np.testing.assert_array_equal(
+                found[live], after["history"][live, 0] == 1, err_msg=where)
+            np.testing.assert_array_equal(
+                found[~live], after["status"][~live] == 1, err_msg=where)
+            np.testing.assert_array_equal(after["status"], want["status"],
+                                          err_msg=where)
+            np.testing.assert_array_equal(
+                after["measurement"][found], want["measurement"][found],
+                err_msg=where)
+            _assert_tables_agree(after, want, where)
+            n_found += int(found.sum())
+    if scene == "all_invalid":
+        assert n_found == 0
+    else:
+        assert n_found > 0
+
+
 # ------------------------------------------------------- the wrapper
 
 def _inputs(c=2, t=3, k=16, n=4):
@@ -389,6 +624,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, case):
         cand, valid = cand[:, :0], valid[:, :0]
     with pytest.raises(ValueError):
         trk.multitarget_step_kernel(table, cand, valid, n)
+
+
+@pytest.mark.parametrize("edge,want", [(0, 0), (1, 1), (273, 273),
+                                       (4095, 4095), (4096, 4096)])
+def test_largest_finds_the_edge_of_a_monotone_test(edge, want):
+    """_largest(fits, most): the largest n in 1…most with fits(n), 0 when
+    none fits, most when all do."""
+    assert trk._largest(lambda n: n <= edge, 4096) == want
+
+
+class _StandInLibrary:
+    """A library whose launch for K candidates and N slots asks for
+    100·N + K bytes (-1 above K = 32768) of a 10,000-byte limit."""
+
+    def tracker_smem_bytes(self, k, n):
+        return -1 if k > 32768 else 100 * n + k
+
+    def tracker_smem_optin(self, device):
+        return 10_000
+
+
+def test_size_check_names_the_limits(monkeypatch):
+    """Before a launch, the wrapper's size check passes what the card's
+    shared memory holds and raises ValueError otherwise, naming the most
+    tracks at the call's K and the most K at its n_tracks."""
+    monkeypatch.setattr(trk, "_library", _StandInLibrary)
+    trk._check_fits.cache_clear()
+    try:
+        assert trk.shared_memory_limits(540, 10, 0) == dict(
+            bytes=1540, optin_bytes=10_000, most_tracks=94, most_k=9000)
+        trk._check_fits(540, 94, 0)
+        trk._check_fits(9000, 10, 0)
+        for k, n in ((540, 95), (9001, 10), (40000, 1)):
+            with pytest.raises(ValueError, match="at most"):
+                trk._check_fits(k, n, 0)
+        with pytest.raises(ValueError, match="at K=540 it takes at most 94 "
+                           "tracks, at n_tracks=95 at most K=500"):
+            trk._check_fits(540, 95, 0)
+    finally:
+        trk._check_fits.cache_clear()
 
 
 def test_cpu_tables_take_the_plain_version_without_the_library(monkeypatch):
