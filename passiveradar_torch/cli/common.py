@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 
 import yaml
@@ -28,6 +29,30 @@ def add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device to run on (default: cuda; there is no "
                         "fallback to the CPU)")
+
+
+def add_profile(p: argparse.ArgumentParser) -> None:
+    """``--profile DIR``: a torch.profiler trace of the run (``profiled``)."""
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="Write a torch.profiler Chrome trace of the run "
+                        "into DIR")
+
+
+def profiled(trace_dir: str | None, dev):
+    """torch.profiler over the run, CPU and (on the card) CUDA activity,
+    its Chrome trace written into ``trace_dir`` (the counterpart of
+    jax.profiler.trace); a null context without a directory. The trace
+    holds the port's spans (``passiveradar_torch/spans.py``) beside the
+    device's kernels and copies."""
+    if trace_dir is None:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def shard_mesh(device, axis_name: str = "frames"):

@@ -15,30 +15,14 @@ card), into ``.partN`` stacks that ``cli.concat`` merges.
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 from passiveradar_torch._device import resolve_device
-from passiveradar_torch.cli.common import add_device, banner, \
-    fail_on_missing_capture, load, parser, shard_mesh
+from passiveradar_torch.cli.common import add_device, add_profile, \
+    banner, fail_on_missing_capture, load, parser, profiled, shard_mesh
 from passiveradar_torch.io.hdf5 import CaptureReader
 from passiveradar_torch.io.writers import MapWriter, write_metadata
 from passiveradar_torch.pipeline import capture_frame_count, run_capture
-
-
-def profiled(trace_dir: str | None, dev):
-    """torch.profiler over the run, CPU and (on the card) CUDA activity,
-    its Chrome trace written into ``trace_dir`` (the counterpart of
-    jax.profiler.trace); a null context without a directory."""
-    if trace_dir is None:
-        return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile, \
-        tensorboard_trace_handler
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts,
-                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def run_multiprocess(cfg, args) -> int:
@@ -85,9 +69,6 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="Resume an interrupted run from the existing output "
                         "file")
-    p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="Write a torch.profiler Chrome trace of the run "
-                        "into DIR")
     p.add_argument("--num-processes", type=int, default=None,
                    help="Multi-process: total process count; each process "
                         "writes a .partN output stack")
@@ -95,6 +76,7 @@ def main(argv=None):
                    help="Multi-process: this process's index")
     p.add_argument("--coordinator", type=str, default=None,
                    help="Multi-process: host:port of process 0")
+    add_profile(p)
     add_device(p)
     args = p.parse_args(argv)
     if args.dispatch_groups < 1:

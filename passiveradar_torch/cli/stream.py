@@ -1,6 +1,7 @@
 """Streaming-mode CLI: replay a capture through the real-time processor.
 
     python -m passiveradar_torch.cli.stream --config cfg.yaml [--device cpu]
+        [--profile DIR]
 
 Port of the JAX package's cli/stream.py: simulates an SDR feed by pushing
 the capture's CPI chunks one at a time through StreamingProcessor (CAF →
@@ -9,7 +10,9 @@ appear and each push's latency (host clock, from the push to its result on
 the host). A wideband configuration (``wideband_channels: K``) streams
 through WidebandStreamingProcessor instead: one push per wideband CPI,
 reported per selected channel, with no flush (wideband CPIs do not
-overlap).
+overlap). ``--profile DIR`` writes a torch.profiler Chrome trace of the
+pushes into DIR, each a ``push`` span with its upload, launch and fetch
+(``passiveradar_torch/spans.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import time
 import numpy as np
 
 from passiveradar_torch._device import resolve_device
-from passiveradar_torch.cli.common import add_device, banner, \
-    fail_on_missing_capture, load, parser
+from passiveradar_torch.cli.common import add_device, add_profile, \
+    banner, fail_on_missing_capture, load, parser, profiled
 from passiveradar_torch.io.hdf5 import CaptureReader
 from passiveradar_torch.streaming import DETAILS, StreamingProcessor
 
@@ -40,6 +43,7 @@ def main(argv=None):
                    help="Per-push result weight: 'summary' skips the "
                         "CAF/CFAR map copy and returns only the track "
                         "summary (the low-latency realtime mode)")
+    add_profile(p)
     add_device(p)
     args = p.parse_args(argv)
     cfg = load(args)
@@ -91,11 +95,12 @@ def main(argv=None):
 
     t0 = time.time()
     try:
-        for f in range(total):
-            ref, srv = reader.read_iq_frames(f, 1)
-            pushed(*timed(sp.push, ref[0], srv[0]))
-        if not wideband:
-            pushed(*timed(sp.flush))
+        with profiled(args.profile, dev):
+            for f in range(total):
+                ref, srv = reader.read_iq_frames(f, 1)
+                pushed(*timed(sp.push, ref[0], srv[0]))
+            if not wideband:
+                pushed(*timed(sp.flush))
     finally:
         reader.close()
     dt = time.time() - t0
@@ -104,6 +109,8 @@ def main(argv=None):
     print(f"Streamed {total} frames in {dt:.1f} s "
           f"({total / dt:.1f} frames/s; capture real-time rate is "
           f"{1 / cfg.frame_interval:.1f} frames/s){lat}")
+    if args.profile:
+        print(f"Profiler trace written into {args.profile}")
     return dict(frames=total, seconds=dt, push_ms=push_ms,
                 tracks=tables if wideband else tables.get(None))
 

@@ -28,8 +28,12 @@ them) that way; ``ops/clutter_graph.py`` (the LS stage) and
   dropped, after the device has finished its work. ``cache_info`` lists
   them.
 * A replay does not call the kernel wrappers, so at capture the launches
-  of each counted kernel (``counters``) are taken off again and recorded,
-  and each replay adds them: a counter counts the launches that ran.
+  of each counted kernel (``counters``) are taken off again and recorded
+  with the wrapper that counts them, and each replay adds them: a counter
+  counts the launches that ran.
+* A key's warm-up and capture is a ``graph.capture/<kind>`` span
+  (``spans.py``): one inside a measured window means a graph was built
+  again (an eviction, or a key that changes every call).
 * A capture that fails raises: no error is turned into an eager run.
 
 Tables that a graph reads by address (the mixer's and the FFT's tables,
@@ -46,6 +50,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from passiveradar_torch.spans import span
+
 BUDGET_SHARE = 0.4       # of a card's memory, for the kept graphs' pools
 
 
@@ -56,6 +62,7 @@ class Graph:
     outputs: tuple              # static outputs, overwritten by each replay
     single: bool                # run returned one tensor, not a tuple
     launches: dict              # counted kernel launches a replay
+    counted: tuple              # (wrapper, launches a replay) pairs
     pool_bytes: int
     warmup_s: float
     capture_s: float
@@ -182,6 +189,7 @@ def _capture(inputs: tuple, run) -> tuple:
             c.launches = before[name]
     entry = Graph(graph, static, _tensors(static_out),
                   torch.is_tensor(static_out), launches,
+                  tuple((kernels[name], n) for name, n in launches.items()),
                   _reserved(dev) - reserved, warmup_s,
                   time.perf_counter() - t0)
     return out, entry
@@ -202,7 +210,7 @@ def capture(kind: str, key, inputs: tuple, run, info=None):
     then the graph of ``run`` kept under ``key``; graphs over the budget
     are dropped, least recently used first."""
     dev = inputs[0].device
-    with _device(dev):
+    with span(f"graph.capture/{kind}"), _device(dev):
         out, entry = _capture(inputs, run)
     entry.kind, entry.info = kind, dict(info or {})
     cache = _graphs.setdefault(dev.index, collections.OrderedDict())
@@ -221,9 +229,8 @@ def replay(entry: Graph) -> tuple:
     stream) and count its launches. Returns its static outputs."""
     with _device(entry.inputs[0].device):
         entry.graph.replay()
-    kernels = counters()
-    for name, n in entry.launches.items():
-        kernels[name].launches += n
+    for wrapper, n in entry.counted:
+        wrapper.launches += n
     entry.replays += 1
     return entry.outputs
 

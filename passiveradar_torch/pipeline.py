@@ -52,6 +52,7 @@ from passiveradar_torch.ops.mixer import block_phase_offsets
 from passiveradar_torch.ops.util import deinterleave_batch
 from passiveradar_torch.parallel.halo import exchange_edges, \
     overlap_frames, split_frames, with_halo
+from passiveradar_torch.spans import span
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -382,53 +383,59 @@ def run_capture(reader, writer, cfg: RadarConfig,
     if int(dispatch_groups) < 1:
         raise ValueError(
             f"dispatch_groups must be >= 1, got {dispatch_groups}")
-    total = capture_frame_count(reader, cfg)
-    bf = batch_frames or cfg.frame_batch
+    with span("capture.open"):
+        total = capture_frame_count(reader, cfg)
+        bf = batch_frames or cfg.frame_batch
 
-    # the frame after the last one written is read as the right margin
-    # when the capture holds it; under strict_frame_parity the reference
-    # trims to N-1 frames first and overlaps with boundary=0
-    # (main.py:116-120 then 180-181), so the last frame's right halo is
-    # zero. A sharded reader's interior edges read into the neighbour's
-    # range.
-    margin_lo = bool(getattr(reader, "frame_margin_before", False))
-    margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
-        total < reader.num_frames and not cfg.strict_frame_parity)
-    frame0 = int(getattr(reader, "frame_offset", 0))
+        # the frame after the last one written is read as the right
+        # margin when the capture holds it; under strict_frame_parity the
+        # reference trims to N-1 frames first and overlaps with boundary=0
+        # (main.py:116-120 then 180-181), so the last frame's right halo
+        # is zero. A sharded reader's interior edges read into the
+        # neighbour's range.
+        margin_lo = bool(getattr(reader, "frame_margin_before", False))
+        margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
+            total < reader.num_frames and not cfg.strict_frame_parity)
+        frame0 = int(getattr(reader, "frame_offset", 0))
 
-    batches = []
-    done = getattr(writer, "frames_done", 0)
-    while done < total:
-        count = min(bf, total - done)
-        lo = done - 1 if (done > 0 or margin_lo) else 0
-        hi = min(total + (1 if margin_hi else 0), done + count + 1)
-        batches.append((done, count, lo, hi))
-        done += count
+        batches = []
+        done = getattr(writer, "frames_done", 0)
+        while done < total:
+            count = min(bf, total - done)
+            lo = done - 1 if (done > 0 or margin_lo) else 0
+            hi = min(total + (1 if margin_hi else 0), done + count + 1)
+            batches.append((done, count, lo, hi))
+            done += count
 
-    pair_mode = hasattr(reader, "read_pair_frames")
-    pdt = reader.pair_dtype if pair_mode else np.float32
-    prefetch = PrefetchReader(reader, [(lo, hi - lo) for _, _, lo, hi in batches],
-                              mode="pair" if pair_mode else "iq")
+        pair_mode = hasattr(reader, "read_pair_frames")
+        pdt = reader.pair_dtype if pair_mode else np.float32
+        prefetch = PrefetchReader(
+            reader, [(lo, hi - lo) for _, _, lo, hi in batches],
+            mode="pair" if pair_mode else "iq")
 
-    lc = cfg.input_chunk_length // 2
-    buf_n = bf + 2
-    if mesh is not None:
-        devs = tuple(mesh.devices)
-        buf_n = -(-buf_n // len(mesh)) * len(mesh)
-    else:
-        dev = resolve_device(device)
-        devs = (dev,)
-    pin = any(d.type == "cuda" for d in devs)
-    tdt = torch.int16 if pdt == np.int16 else torch.float32
-    map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
-    # two sets of host buffers, used in turn: set s is refilled two batches
-    # after its copies were queued, by when finish() has waited on them
-    host = [dict(ref=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
-                 srv=torch.empty((buf_n, lc, 2), dtype=tdt, pin_memory=pin),
-                 ph=torch.empty(buf_n, dtype=torch.float32, pin_memory=pin),
-                 out=torch.empty(map_shape, dtype=torch.complex64,
-                                 pin_memory=pin))
-            for _ in range(2)]
+        lc = cfg.input_chunk_length // 2
+        buf_n = bf + 2
+        if mesh is not None:
+            devs = tuple(mesh.devices)
+            buf_n = -(-buf_n // len(mesh)) * len(mesh)
+        else:
+            dev = resolve_device(device)
+            devs = (dev,)
+        pin = any(d.type == "cuda" for d in devs)
+        tdt = torch.int16 if pdt == np.int16 else torch.float32
+        map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
+        # two sets of host buffers, used in turn: set s is refilled two
+        # batches after its copies were queued, by when finish() has
+        # waited on them
+        host = [dict(ref=torch.empty((buf_n, lc, 2), dtype=tdt,
+                                     pin_memory=pin),
+                     srv=torch.empty((buf_n, lc, 2), dtype=tdt,
+                                     pin_memory=pin),
+                     ph=torch.empty(buf_n, dtype=torch.float32,
+                                    pin_memory=pin),
+                     out=torch.empty(map_shape, dtype=torch.complex64,
+                                     pin_memory=pin))
+                for _ in range(2)]
     done = getattr(writer, "frames_done", 0)
 
     def dispatch(bufs):
@@ -461,33 +468,41 @@ def run_capture(reader, writer, cfg: RadarConfig,
     def finish(item):
         nonlocal done
         start, count, maps, events = item
-        for event in events:
-            event.synchronize()
-        writer.write(maps[1:1 + count].numpy(), start)
-        done += count
-        if progress:
-            print(f"\r  processed {done}/{total} frames", end="", flush=True)
+        with span("capture.wait"):
+            for event in events:
+                event.synchronize()
+        with span("capture.write"):
+            writer.write(maps[1:1 + count].numpy(), start)
+            done += count
+            if progress:
+                print(f"\r  processed {done}/{total} frames", end="",
+                      flush=True)
 
     pending = None
-    for i, ((start, count, lo, hi), (_, _, (ref_raw, srv_raw))) in enumerate(
-            zip(batches, prefetch)):
-        bufs = host[i % 2]
-        slot0 = 1 - (start - lo)
-        nread = hi - lo
-        for key, raw in (("ref", ref_raw), ("srv", srv_raw)):
-            buf = bufs[key].numpy()
-            buf[:slot0] = 0
-            buf[slot0 + nread:] = 0
-            buf[slot0:slot0 + nread] = raw if pair_mode else \
-                raw.view(np.float32).reshape(nread, lc, 2)
-        phases = bufs["ph"].numpy()
-        phases[:] = 0
-        phases[slot0:slot0 + nread] = frame_phases(
-            cfg, list(range(frame0 + lo, frame0 + hi)))
-        maps, events = dispatch(bufs)
-        if pending is not None:
-            finish(pending)
-        pending = (start, count, maps, events)
+    reads = iter(prefetch)
+    for i, (start, count, lo, hi) in enumerate(batches):
+        with span("capture.batch"):
+            with span("capture.read"):
+                _, _, (ref_raw, srv_raw) = next(reads)
+            with span("capture.stage"):
+                bufs = host[i % 2]
+                slot0 = 1 - (start - lo)
+                nread = hi - lo
+                for key, raw in (("ref", ref_raw), ("srv", srv_raw)):
+                    buf = bufs[key].numpy()
+                    buf[:slot0] = 0
+                    buf[slot0 + nread:] = 0
+                    buf[slot0:slot0 + nread] = raw if pair_mode else \
+                        raw.view(np.float32).reshape(nread, lc, 2)
+                phases = bufs["ph"].numpy()
+                phases[:] = 0
+                phases[slot0:slot0 + nread] = frame_phases(
+                    cfg, list(range(frame0 + lo, frame0 + hi)))
+            with span("capture.launch"):
+                maps, events = dispatch(bufs)
+            if pending is not None:
+                finish(pending)
+            pending = (start, count, maps, events)
     if pending is not None:
         finish(pending)
     if progress:

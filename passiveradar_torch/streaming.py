@@ -29,7 +29,9 @@ from passiveradar_torch.detect.trackers import init_tracks, \
 from passiveradar_torch.ops.caf import device_window, fast_xambg
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.util import to_host_complex
-from passiveradar_torch.pipeline import _clean_batch, _replayed, frame_phases
+from passiveradar_torch.pipeline import _clean_batch, _replayed, \
+    _to_device, frame_phases
+from passiveradar_torch.spans import span
 
 DETAILS = ("full", "summary")
 
@@ -130,18 +132,18 @@ class StreamingProcessor:
 
     def _clean(self, raw_ref, raw_srv):
         cfg = self.cfg
-        phases = frame_phases(cfg, [self._index])
 
         def ship(raw):
-            # a tensor (already on the device, or not) is used as it is;
-            # numpy goes over once: float32 interleaved IQ or complex64
-            if not torch.is_tensor(raw):
-                raw = torch.from_numpy(np.ascontiguousarray(raw))
-            return raw[None]
+            # a tensor on the device is used as it is; numpy or a host
+            # tensor goes over once: float32 interleaved IQ or complex64
+            return _to_device(raw, self.dev)[None]
 
-        # both preprocesses and the clutter stage: one graph on the card
-        return _clean_batch(ship(raw_ref), ship(raw_srv), phases, cfg,
-                            device=self.dev)
+        with span("push.upload"):
+            ref, srv = ship(raw_ref), ship(raw_srv)
+        with span("push.launch"):
+            # both preprocesses and the clutter stage: one graph on the card
+            return _clean_batch(ref, srv, frame_phases(cfg, [self._index]),
+                                cfg, device=self.dev)
 
     def _finish(self, prev, cur, last: bool = False,
                 detail: Optional[str] = None) -> StreamResult:
@@ -150,35 +152,38 @@ class StreamingProcessor:
         idx, ref_c, srv_c = prev
         h = cfg.window_overlap
         n = ref_c.shape[1]
-        zeros = torch.zeros(h, dtype=ref_c.dtype, device=ref_c.device)
-        left_r, left_s = (zeros, zeros) if idx == 0 else self._left_tail
-        # :h and n - h: (not -h) so h == 0 (overlap_cpi: false) gives empty
-        # halos instead of the whole frame
-        right_r, right_s = (zeros, zeros) if last else \
-            (cur[0][0, :h], cur[1][0, :h])
-        # the CAF and the CFAR: one graph on the card; the tracker step
-        # (its own kernel) stays outside
-        caf, cf = _replayed(
-            "stream_caf", functools.partial(
-                _caf_cfar, cfg=cfg, window=self._window,
-                cfar_kernel=tuple(self.cfar_kernel)),
-            (left_r, ref_c[0], right_r, left_s, srv_c[0], right_s), cfg,
-            tuple(self.cfar_kernel))
-        self._tracks = multitarget_step(self._tracks, cf, self._extent,
-                                        self.n_tracks, cfg.candidate_budget)
+        with span("push.launch"):
+            zeros = torch.zeros(h, dtype=ref_c.dtype, device=ref_c.device)
+            left_r, left_s = (zeros, zeros) if idx == 0 else self._left_tail
+            # :h and n - h: (not -h) so h == 0 (overlap_cpi: false) gives
+            # empty halos instead of the whole frame
+            right_r, right_s = (zeros, zeros) if last else \
+                (cur[0][0, :h], cur[1][0, :h])
+            # the CAF and the CFAR: one graph on the card; the tracker step
+            # (its own kernel) stays outside
+            caf, cf = _replayed(
+                "stream_caf", functools.partial(
+                    _caf_cfar, cfg=cfg, window=self._window,
+                    cfar_kernel=tuple(self.cfar_kernel)),
+                (left_r, ref_c[0], right_r, left_s, srv_c[0], right_s), cfg,
+                tuple(self.cfar_kernel))
+            self._tracks = multitarget_step(self._tracks, cf, self._extent,
+                                            self.n_tracks,
+                                            cfg.candidate_budget)
         self._left_tail = (ref_c[0, n - h:], srv_c[0, n - h:])
         self._last_maps = (caf, cf)
-        if detail == "summary":
+        with span("push.fetch"):
+            if detail == "summary":
+                return StreamResult(
+                    frame_index=idx, caf=None, cfar=None, tracks=None,
+                    summary=_fetch_summary(self._tracks),
+                )
             return StreamResult(
-                frame_index=idx, caf=None, cfar=None, tracks=None,
-                summary=_fetch_summary(self._tracks),
+                frame_index=idx,
+                caf=to_host_complex(caf),
+                cfar=cf.cpu().numpy(),
+                tracks=to_host(self._tracks),
             )
-        return StreamResult(
-            frame_index=idx,
-            caf=to_host_complex(caf),
-            cfar=cf.cpu().numpy(),
-            tracks=to_host(self._tracks),
-        )
 
     def fetch_maps(self):
         """Copy the most recently finished frame's (caf, cfar) maps to the
@@ -187,7 +192,8 @@ class StreamingProcessor:
         if self._last_maps is None:
             return None
         caf, cf = self._last_maps
-        return to_host_complex(caf), cf.cpu().numpy()
+        with span("push"), span("push.fetch"):
+            return to_host_complex(caf), cf.cpu().numpy()
 
     def push(self, raw_ref, raw_srv,
              detail: Optional[str] = None) -> Optional[StreamResult]:
@@ -199,10 +205,11 @@ class StreamingProcessor:
         ("full" / "summary" — see the class docstring)."""
         if detail is not None and detail not in DETAILS:
             raise ValueError(f"unknown detail mode {detail!r}")
-        cleaned = self._clean(raw_ref, raw_srv)
-        result = None
-        if self._hist:
-            result = self._finish(self._hist[-1], cleaned, detail=detail)
+        with span("push"):
+            cleaned = self._clean(raw_ref, raw_srv)
+            result = None
+            if self._hist:
+                result = self._finish(self._hist[-1], cleaned, detail=detail)
         self._hist = [(self._index, *cleaned)]
         self._index += 1
         return result
@@ -212,6 +219,8 @@ class StreamingProcessor:
         end)."""
         if not self._hist:
             return None
-        result = self._finish(self._hist[-1], None, last=True, detail=detail)
+        with span("push"):
+            result = self._finish(self._hist[-1], None, last=True,
+                                  detail=detail)
         self._hist = []
         return result

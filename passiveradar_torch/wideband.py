@@ -40,6 +40,7 @@ from passiveradar_torch.ops.channelizer import channelize, channelize_pair
 from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
 from passiveradar_torch.ops.util import as_complex, to_host_complex
 from passiveradar_torch.pipeline import _as_tensor
+from passiveradar_torch.spans import span
 from passiveradar_torch.streaming import DETAILS, StreamResult, \
     _fetch_summary
 
@@ -236,43 +237,58 @@ def run_wideband_capture(reader, cfg: RadarConfig,
     from passiveradar_torch.io.hdf5 import PrefetchReader
     from passiveradar_torch.io.writers import MapWriter
 
-    dev = resolve_device(device) if mesh is None else None
-    total = min(reader.num_frames, cfg.num_frames)
-    bf = batch_frames or cfg.frame_batch
-    select = cfg.wideband_channel_select
-    own_writers = writers is None
-    if own_writers:
-        writers = {k: MapWriter(cfg, total, channel_path(cfg, k))
-                   for k in select}
-    int_writer = MapWriter(cfg, total, integrated_path(cfg)) \
-        if integrate else None
+    with span("capture.open"):
+        dev = resolve_device(device) if mesh is None else None
+        total = min(reader.num_frames, cfg.num_frames)
+        bf = batch_frames or cfg.frame_batch
+        select = cfg.wideband_channel_select
+        own_writers = writers is None
+        if own_writers:
+            writers = {k: MapWriter(cfg, total, channel_path(cfg, k))
+                       for k in select}
+        int_writer = MapWriter(cfg, total, integrated_path(cfg)) \
+            if integrate else None
 
-    batches = [(s, min(bf, total - s)) for s in range(0, total, bf)]
-    prefetch = PrefetchReader(reader, batches, mode="iq")
-    lc = cfg.input_chunk_length // 2
-    buf_ref = np.zeros((bf, lc), np.complex64)
-    buf_srv = np.zeros((bf, lc), np.complex64)
+        batches = [(s, min(bf, total - s)) for s in range(0, total, bf)]
+        prefetch = PrefetchReader(reader, batches, mode="iq")
+        lc = cfg.input_chunk_length // 2
+        buf_ref = np.zeros((bf, lc), np.complex64)
+        buf_srv = np.zeros((bf, lc), np.complex64)
     done = 0
+    reads = iter(prefetch)
     try:
-        for start, count, (ref_raw, srv_raw) in prefetch:
-            buf_ref[:count] = ref_raw
-            buf_srv[:count] = srv_raw
-            buf_ref[count:] = 0
-            buf_srv[count:] = 0
-            blocks = [wideband_frames(buf_ref, buf_srv, cfg, device=dev)] \
-                if mesh is None else \
-                wideband_frames_shmap(buf_ref, buf_srv, cfg, mesh)
-            # (count, S, nf, R+1), the shards' channel blocks in order
-            maps = torch.cat([b[:count].cpu() for b in blocks], dim=1).numpy()
-            for i, k in enumerate(select):
-                writers[k].write(maps[:, i], start)
-            if int_writer is not None:
-                integ = sum(b[:count].abs().sum(dim=1).cpu() for b in blocks)
-                int_writer.write(integ.numpy().astype(np.complex64), start)
-            done += count
-            if progress:
-                print(f"\r  processed {done}/{total} wideband CPIs", end="",
-                      flush=True)
+        for _ in batches:
+            with span("capture.batch"):
+                with span("capture.read"):
+                    start, count, (ref_raw, srv_raw) = next(reads)
+                with span("capture.stage"):
+                    buf_ref[:count] = ref_raw
+                    buf_srv[:count] = srv_raw
+                    buf_ref[count:] = 0
+                    buf_srv[count:] = 0
+                with span("capture.launch"):
+                    blocks = [wideband_frames(buf_ref, buf_srv, cfg,
+                                              device=dev)] \
+                        if mesh is None else \
+                        wideband_frames_shmap(buf_ref, buf_srv, cfg, mesh)
+                    if int_writer is not None:
+                        parts = [b[:count].abs().sum(dim=1) for b in blocks]
+                with span("capture.wait"):
+                    # (count, S, nf, R+1), the shards' channel blocks in
+                    # order
+                    maps = torch.cat([b[:count].cpu() for b in blocks],
+                                     dim=1).numpy()
+                    if int_writer is not None:
+                        integ = sum(x.cpu() for x in parts).numpy()
+                with span("capture.write"):
+                    for i, k in enumerate(select):
+                        writers[k].write(maps[:, i], start)
+                    if int_writer is not None:
+                        int_writer.write(integ.astype(np.complex64), start)
+                    done += count
+                    if progress:
+                        print(f"\r  processed {done}/{total} wideband CPIs",
+                              end="", flush=True)
     finally:
         if own_writers:
             for w in writers.values():
@@ -363,11 +379,23 @@ class WidebandStreamingProcessor:
         detail = self.detail if detail is None else detail
         if detail not in DETAILS:
             raise ValueError(f"unknown detail mode {detail!r}")
-        maps, cf = self.maps(raw_ref, raw_srv)
-        self._last_maps = (maps, cf)
-        self.track(cf)
-        # every channel's summary (one copy) or table at once, then each
-        # channel's slice of it
+        with span("push"):
+            with span("push.upload"):
+                raw_ref = on_device(raw_ref, self.dev)
+                raw_srv = on_device(raw_srv, self.dev)
+            with span("push.launch"):
+                maps, cf = self.maps(raw_ref, raw_srv)
+                self._last_maps = (maps, cf)
+                self.track(cf)
+            with span("push.fetch"):
+                results = self._results(maps, cf, detail)
+        self._index += 1
+        return results
+
+    def _results(self, maps, cf, detail: str) -> dict:
+        """{channel_index: StreamResult} of this CPI on the host: every
+        channel's summary (one copy) or table at once, then each channel's
+        slice of it."""
         if detail == "summary":
             summary = _fetch_summary(self._tracks)
         else:
@@ -384,7 +412,6 @@ class WidebandStreamingProcessor:
                     caf=to_host_complex(maps[i]),
                     cfar=cf[i].cpu().numpy(),
                     tracks=_slot(tables, i))
-        self._index += 1
         return results
 
     def fetch_maps(self) -> dict | None:
@@ -394,5 +421,6 @@ class WidebandStreamingProcessor:
         if self._last_maps is None:
             return None
         maps, cf = self._last_maps
-        return {k: (to_host_complex(maps[i]), cf[i].cpu().numpy())
-                for i, k in enumerate(self.cfg.wideband_channel_select)}
+        with span("push"), span("push.fetch"):
+            return {k: (to_host_complex(maps[i]), cf[i].cpu().numpy())
+                    for i, k in enumerate(self.cfg.wideband_channel_select)}
