@@ -91,11 +91,12 @@ Phases, one JSON line each; any failure exits non-zero:
    replay's ms, one traced replay (device kernels, idle share), the pool,
    warm-up and capture seconds and the launches of a replay; then
    (``run_capture_trace``) two consecutive batches dispatched from pinned
-   buffers as the earlier loop did (phases by a blocking copy, the eager
-   chain) and as run_capture does now, in turns:
+   buffers as the two earlier loops did (phases by a blocking copy, the
+   eager chain; pinned buffers into the batch graph), in turns:
    whether batch 0 still ran when batch 1 had been enqueued, host enqueue
-   and wall ms, traced; the steady state above times the batch graph
-   beside the eager stages in turns;
+   and wall ms, traced; then run_capture through its card feed, traced
+   (kernel ms inside each stage span, the feed's counters); the steady
+   state above times the batch graph beside the eager stages in turns;
 9. cancellers: the steady-state FM batch through every clutter_impl
    (carry, coupled, segment) × clutter_solver (levinson, gs_matrix,
    gs_dense, cholesky), the clutter stage graphed and eager in turns (median
@@ -1420,16 +1421,22 @@ class NullWriter:
 
 
 def phase_run_capture_trace(torch, dev, params):
-    """Two consecutive FM batches as run_capture dispatches them, from
-    pinned host buffers: as the earlier loop did (the phases copied with a
-    blocking .to(device), then the eager chain) and as it does now (raw,
-    phases and maps through pinned buffers straight into and out of the
-    batch graph), in turns (before, after, after, before; 3 times): each
+    """Two consecutive FM batches dispatched from pinned host buffers as
+    run_capture's two earlier dispatches did: "before", the phases copied
+    with a blocking .to(device), then the eager chain; "after", raw, phases
+    and maps through pinned buffers straight into and out of the batch
+    graph, the one-card loop's dispatch until its card feed (feed.py)
+    replaced it. In turns (before, after, after, before; 3 times): each
     batch's host enqueue ms, whether batch 0's device work was still
     running when batch 1 had been enqueued (its event not yet reached: one
     batch in flight), the two batches' wall ms, and one traced pair each
-    (device kernels, idle share); then run_capture itself over the 16-frame
-    capture, traced."""
+    (device kernels, idle share). Then run_capture itself over the 16-frame
+    capture, through its card feed, traced: the card's kernel time inside
+    each ``capture.stage`` span (above 0 after the first batch where the
+    card still ran the previous batch while the host staged the next) and
+    the feed's counters (``feed.stage_info``: two slots a channel reused
+    at every batch after a call's first)."""
+    from passiveradar_torch import feed
     from passiveradar_torch import pipeline as pl
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io.hdf5 import CaptureReader
@@ -1491,10 +1498,12 @@ def phase_run_capture_trace(torch, dev, params):
         t = trace(torch, lambda variant=variant: two(variant))
         t.pop("by_name", None)
         traced[variant] = t
+    counted = feed.stage_info()
     loop = trace(torch, lambda: pl.run_capture(reader, NullWriter(), cfg,
                                                progress=False, device=dev))
     loop.pop("by_name", None)
     reader.close()
+    fed = {k: v - counted[k] for k, v in feed.stage_info().items()}
     summary = {v: dict(
         wall_ms_median=float(np.median([r["wall_ms"] for r in rs])),
         host_enqueue_ms_median=[float(np.median([r["host_enqueue_ms"][i]
@@ -1507,10 +1516,14 @@ def phase_run_capture_trace(torch, dev, params):
               order="before, after, after, before; x3", summary=summary,
               runs=runs, traced_two_batches=traced,
               maps_equal_before_after=same,
-              run_capture_16_frames_traced=loop))
+              run_capture_16_frames_traced=loop, run_capture_feed=fed))
     if not same:
         raise AssertionError("run_capture's batches differ before and "
                              "after the phases repair")
+    if fed["frames_reused"] != 2 * 2 * (fed["batches"] - fed["calls"]):
+        raise AssertionError(f"run_capture's feed reused {fed}: not two "
+                             "slots a channel at every batch after a "
+                             "call's first")
 
 
 def phase_ls_route_ab(torch, dev, cfg):
@@ -3021,25 +3034,40 @@ def trace(torch, fn) -> dict:
         return dict(traced_wall_ms=wall_ms, kernels=0,
                     note="the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
+    busy = sum(b - a for a, b in merged(spans))
     span = spans[-1][1] - spans[0][0]
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    return dict(traced_wall_ms=wall_ms, kernels=len(kernels),
-                device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
-                idle_share=1.0 - busy / span,
-                by_name=[dict(name=k[:80], ms=t / 1e3, launches=c)
-                         for k, (t, c) in sorted(by_name.items(),
-                                                 key=lambda kv: -kv[1][0])])
+    out = dict(traced_wall_ms=wall_ms, kernels=len(kernels),
+               device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
+               idle_share=1.0 - busy / span,
+               by_name=[dict(name=k[:80], ms=t / 1e3, launches=c)
+                        for k, (t, c) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][0])])
+    stages = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events() if e.name == "capture.stage")
+    if stages:
+        # kernels only: a stage's own chunk copies and memsets are not the
+        # previous batch running
+        runs = sorted((e.time_range.start, e.time_range.end) for e in kernels
+                      if not e.name.startswith(("Memcpy", "Memset")))
+        out["kernel_ms_in_stage"] = [
+            sum(max(0, min(b, s1) - max(a, s0)) for a, b in merged(runs))
+            / 1e3 for s0, s1 in stages]
+    return out
+
+
+def merged(spans) -> list:
+    """Sorted (start, end) spans with the overlapping ones joined."""
+    out = []
+    for a, b in spans:
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
 def profile_batch(torch, pl, ref, srv, ph, cfg):

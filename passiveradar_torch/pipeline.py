@@ -21,14 +21,16 @@ On the card every entry point (``preprocess_batch``, ``caf_batch``,
 graph (ops/clutter_graph.py). CPU tensors run the eager chain.
 
 ``run_capture`` is the host loop: fixed bf+2-frame buffers with a one-frame
-halo margin on each side, pinned host buffers (raw, phases, maps) copied
-straight into the batch graph's static inputs and out of its static output
-without waiting, and one batch of device work in flight while the host
-writes the previous batch's maps and the prefetch thread reads the next one
-from disk. A batch runs on one device (``process_frames``) or split over
-the devices of a frame mesh (``process_frames_shmap``: the halo is then an
-exchange between shards). ``process_frames_groups`` runs G stacked batches
-a call.
+halo margin on each side, and one batch of device work in flight while the
+host writes the previous batch's maps and the prefetch thread reads the
+next one from disk. On one card each frame crosses from the host once
+(feed.py: the halo kept on the card, the new frames streamed in chunks on
+a copy stream into staging buffers that feed the batch graph's static
+inputs); the maps come out of its static output into pinned buffers
+without waiting. A batch runs on one device (``process_frames``) or split
+over the devices of a frame mesh (``process_frames_shmap``: the halo is
+then an exchange between shards, fed from pinned host buffers).
+``process_frames_groups`` runs G stacked batches a call.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
+from passiveradar_torch.feed import CardFeed, plan_batches
 from passiveradar_torch.io.hdf5 import PrefetchReader
 from passiveradar_torch.ops import (fft_kernel, graphs, levinson_kernel,
                                     nlms_kernel, resample_kernel)
@@ -354,6 +357,25 @@ def capture_frame_count(reader, cfg: RadarConfig) -> int:
     return total
 
 
+def capture_batches(reader, writer, cfg: RadarConfig, bf: int,
+                    reuse: bool) -> tuple:
+    """(frames of the run, its batches: feed.plan_batches) for a run of
+    ``run_capture`` over ``reader`` into ``writer`` in batches of ``bf``;
+    ``reuse`` keeps each batch's left halo on the card.
+
+    The frame after the last one written is read as the right margin when
+    the capture holds it; under strict_frame_parity the reference trims to
+    N-1 frames first and overlaps with boundary=0 (main.py:116-120 then
+    180-181), so the last frame's right halo is zero. A sharded reader's
+    interior edges read into the neighbour's range."""
+    total = capture_frame_count(reader, cfg)
+    margin_lo = bool(getattr(reader, "frame_margin_before", False))
+    margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
+        total < reader.num_frames and not cfg.strict_frame_parity)
+    return total, plan_batches(total, bf, getattr(writer, "frames_done", 0),
+                               margin_lo, margin_hi, reuse)
+
+
 def run_capture(reader, writer, cfg: RadarConfig,
                 batch_frames: int | None = None, progress: bool = True,
                 device=None, dispatch_groups: int = 1, mesh=None) -> int:
@@ -374,45 +396,21 @@ def run_capture(reader, writer, cfg: RadarConfig,
     (parallel/mesh.FrameMesh) splits each batch over its devices
     (process_frames_shmap), the buffer rounded up to a multiple of its
     size; ``device`` is then ignored. On one card each batch is a replay
-    of the batch graph (process_frames). ``dispatch_groups`` (>= 1) is
-    taken for the JAX package's signature and ignored: a batch is already
-    one graph launch, so a grouped dispatch would only delay the first
-    batch's copy and write (process_frames_groups is the grouped call as a
-    library function).
+    of the batch graph (process_frames), fed by a feed.CardFeed: each
+    frame is read and sent to the card once, a batch's left halo is the
+    previous batch's last two slots, copied on the card
+    (``feed.stage_info()`` counts what it sent and reused); under a mesh
+    and on the CPU the batch is assembled in host buffers.
+    ``dispatch_groups`` (>= 1) is taken for the JAX package's signature and
+    ignored: a batch is already one graph launch, so a grouped dispatch
+    would only delay the first batch's copy and write
+    (process_frames_groups is the grouped call as a library function).
     """
     if int(dispatch_groups) < 1:
         raise ValueError(
             f"dispatch_groups must be >= 1, got {dispatch_groups}")
     with span("capture.open"):
-        total = capture_frame_count(reader, cfg)
         bf = batch_frames or cfg.frame_batch
-
-        # the frame after the last one written is read as the right
-        # margin when the capture holds it; under strict_frame_parity the
-        # reference trims to N-1 frames first and overlaps with boundary=0
-        # (main.py:116-120 then 180-181), so the last frame's right halo
-        # is zero. A sharded reader's interior edges read into the
-        # neighbour's range.
-        margin_lo = bool(getattr(reader, "frame_margin_before", False))
-        margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
-            total < reader.num_frames and not cfg.strict_frame_parity)
-        frame0 = int(getattr(reader, "frame_offset", 0))
-
-        batches = []
-        done = getattr(writer, "frames_done", 0)
-        while done < total:
-            count = min(bf, total - done)
-            lo = done - 1 if (done > 0 or margin_lo) else 0
-            hi = min(total + (1 if margin_hi else 0), done + count + 1)
-            batches.append((done, count, lo, hi))
-            done += count
-
-        pair_mode = hasattr(reader, "read_pair_frames")
-        pdt = reader.pair_dtype if pair_mode else np.float32
-        prefetch = PrefetchReader(
-            reader, [(lo, hi - lo) for _, _, lo, hi in batches],
-            mode="pair" if pair_mode else "iq")
-
         lc = cfg.input_chunk_length // 2
         buf_n = bf + 2
         if mesh is not None:
@@ -422,35 +420,50 @@ def run_capture(reader, writer, cfg: RadarConfig,
             dev = resolve_device(device)
             devs = (dev,)
         pin = any(d.type == "cuda" for d in devs)
+        # on one card each frame crosses once: the halo stays on the card
+        # and the new frames stream through feed.CardFeed
+        streamed = mesh is None and pin
+        total, batches = capture_batches(reader, writer, cfg, bf,
+                                         reuse=streamed)
+        frame0 = int(getattr(reader, "frame_offset", 0))
+
+        pair_mode = hasattr(reader, "read_pair_frames")
+        pdt = reader.pair_dtype if pair_mode else np.float32
+        prefetch = PrefetchReader(reader, [b.read for b in batches],
+                                  mode="pair" if pair_mode else "iq")
+
         tdt = torch.int16 if pdt == np.int16 else torch.float32
         map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
         # two sets of host buffers, used in turn: set s is refilled two
         # batches after its copies were queued, by when finish() has
         # waited on them
-        host = [dict(ref=torch.empty((buf_n, lc, 2), dtype=tdt,
-                                     pin_memory=pin),
-                     srv=torch.empty((buf_n, lc, 2), dtype=tdt,
-                                     pin_memory=pin),
-                     ph=torch.empty(buf_n, dtype=torch.float32,
+        host = [dict(ph=torch.empty(buf_n, dtype=torch.float32,
                                     pin_memory=pin),
                      out=torch.empty(map_shape, dtype=torch.complex64,
                                      pin_memory=pin))
                 for _ in range(2)]
+        feed = CardFeed(buf_n, lc, tdt, dev) if streamed else None
+        if not streamed:
+            for h in host:
+                h.update(ref=torch.empty((buf_n, lc, 2), dtype=tdt,
+                                         pin_memory=pin),
+                         srv=torch.empty((buf_n, lc, 2), dtype=tdt,
+                                         pin_memory=pin))
     done = getattr(writer, "frames_done", 0)
 
-    def dispatch(bufs):
+    def dispatch(inputs, bufs):
         """One batch's maps as (buf_n, ...) on the host, with the events
-        to wait for before reading them. On one card the pinned buffers go
-        straight into the batch graph's static inputs and its static output
-        straight into the pinned ``out``, all in stream order: the host
-        never waits here, so the next batch is read and enqueued while the
-        card works."""
-        inputs = (bufs["ref"], bufs["srv"], bufs["ph"])
+        to wait for before reading them. On one card the feed's staging
+        buffers go into the batch graph's static inputs and its static
+        output straight into the pinned ``out``, all in stream order: the
+        host never waits here, so the next batch is read and enqueued while
+        the card works."""
         if mesh is not None:
             blocks = process_frames_shmap(*inputs, cfg, mesh)
         elif pin:
             blocks = [_graphed("frames", inputs, cfg, device=dev,
                                fresh=False)]
+            feed.consumed()
         else:
             blocks = [_process_frames_impl(*inputs, cfg)]
         if not pin:
@@ -480,31 +493,38 @@ def run_capture(reader, writer, cfg: RadarConfig,
 
     pending = None
     reads = iter(prefetch)
-    for i, (start, count, lo, hi) in enumerate(batches):
-        with span("capture.batch"):
-            with span("capture.read"):
-                _, _, (ref_raw, srv_raw) = next(reads)
-            with span("capture.stage"):
-                bufs = host[i % 2]
-                slot0 = 1 - (start - lo)
-                nread = hi - lo
-                for key, raw in (("ref", ref_raw), ("srv", srv_raw)):
-                    buf = bufs[key].numpy()
-                    buf[:slot0] = 0
-                    buf[slot0 + nread:] = 0
-                    buf[slot0:slot0 + nread] = raw if pair_mode else \
-                        raw.view(np.float32).reshape(nread, lc, 2)
-                phases = bufs["ph"].numpy()
-                phases[:] = 0
-                phases[slot0:slot0 + nread] = frame_phases(
-                    cfg, list(range(frame0 + lo, frame0 + hi)))
-            with span("capture.launch"):
-                maps, events = dispatch(bufs)
-            if pending is not None:
-                finish(pending)
-            pending = (start, count, maps, events)
-    if pending is not None:
-        finish(pending)
+    try:
+        for i, b in enumerate(batches):
+            with span("capture.batch"):
+                with span("capture.read"):
+                    _, _, raws = next(reads)
+                with span("capture.stage"):
+                    bufs = host[i % 2]
+                    slot0, held = b.first_slot, b.hi - b.lo
+                    phases = bufs["ph"].numpy()
+                    phases[:] = 0
+                    phases[slot0:slot0 + held] = frame_phases(
+                        cfg, list(range(frame0 + b.lo, frame0 + b.hi)))
+                    if streamed:
+                        staged = feed.stage(b, raws)
+                    else:
+                        staged = (bufs["ref"], bufs["srv"])
+                        for buf, raw in zip(staged, raws):
+                            buf = buf.numpy()
+                            buf[:slot0] = 0
+                            buf[slot0 + held:] = 0
+                            buf[slot0:slot0 + held] = raw if pair_mode \
+                                else raw.view(np.float32).reshape(held, lc, 2)
+                with span("capture.launch"):
+                    maps, events = dispatch((*staged, bufs["ph"]), bufs)
+                if pending is not None:
+                    finish(pending)
+                pending = (b.start, b.count, maps, events)
+        if pending is not None:
+            finish(pending)
+    finally:
+        if feed is not None:
+            feed.close()
     if progress:
         print()
     return total

@@ -21,7 +21,9 @@ The spans, each with its parent:
 * ``capture.batch``: one iteration of the loop of either, with the
   disjoint children
   ``capture.read`` (waiting on the prefetch reader), ``capture.stage`` (the
-  host copies into the buffers the card reads), ``capture.launch``
+  host copies into the buffers the card reads; the FM loop on one card:
+  from handing the batch to its feed until the last chunk's copy is
+  enqueued, feed.py), ``capture.launch``
   (enqueuing the batch's device work), ``capture.wait`` (blocked until a
   batch's maps are on the host) and ``capture.write`` (the writers). In the
   FM loop the wait and the write are the previous batch's.

@@ -1333,6 +1333,84 @@ def test_run_capture_maps_equal_the_eager_chain(cuda, dtype):
                                       want[1:1 + count])
 
 
+class _MemIQReader:
+    """The same capture read as complex64 frames (read_iq_frames)."""
+
+    def __init__(self, ref, srv):
+        self.ref, self.srv = (x.view(np.complex64).reshape(x.shape[:2])
+                              for x in (ref, srv))
+        self.num_frames = ref.shape[0]
+
+    def read_iq_frames(self, start, count):
+        return self.ref[start:start + count], self.srv[start:start + count]
+
+
+def _frames_graphs():
+    from passiveradar_torch.ops import graphs
+    kept = [g for g in graphs.cache_info() if g["kind"] == "frames"]
+    return len(kept), sum(g["replays"] for g in kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total,bf,done,mode,chunk", [
+    (11, 3, 0, "int16", None),      # four batches over two staging sets
+    (8, 3, 0, "float32", None),     # a partial last batch of two frames
+    (10, 3, 4, "int16", None),      # a resumed writer: frames 4..9
+    (9, 2, 0, "iq", None),          # complex64 reads, five batches
+    # 1 MiB + 5 B chunks (not a divisor of a 1.5 MB frame) through the
+    # two-slot ring, so slots are refilled within a batch
+    (11, 3, 0, "float32", (1 << 20) + 5),
+])
+def test_run_capture_feed_maps_equal_the_eager_chain(cuda, monkeypatch,
+                                                     total, bf, done, mode,
+                                                     chunk):
+    """run_capture's card feed (the halo copied on the card, the new frames
+    streamed in chunks on a copy stream) writes each batch's maps bit for
+    bit as the eager chain gives them on the buffer assembled in numpy;
+    every frame crosses from the host once, two slots a batch after the
+    first are reused on the card, and no graph is captured after the
+    first batch."""
+    from passiveradar_torch import feed
+    from passiveradar_torch import pipeline as pl
+    if chunk is not None:
+        monkeypatch.setattr(feed, "CHUNK_BYTES", chunk)
+    cfg, ref, srv, _ = _graph_batch(
+        cuda, "int16" if mode == "int16" else "float32", nfr=total,
+        num_frames=total)
+    ref, srv = ref.cpu().numpy(), srv.cpu().numpy()
+    ref[0] = srv[0] = ref[1]                    # no zero frame here
+    reader = _MemIQReader(ref, srv) if mode == "iq" else _MemReader(ref, srv)
+    writer = _MemWriter((total, cfg.num_doppler_cells,
+                         cfg.num_range_cells + 1))
+    writer.frames_done = done
+    counted, (kept, replays) = feed.stage_info(), _frames_graphs()
+    assert pl.run_capture(reader, writer, cfg, batch_frames=bf,
+                          progress=False, device=cuda) == total
+    batches = -(-(total - done) // bf)
+    new_kept, new_replays = _frames_graphs()
+    assert new_kept - kept <= 1
+    assert new_replays - replays == batches - (new_kept - kept)
+    stats = {k: v - counted[k] for k, v in feed.stage_info().items()}
+    first = done - 1 if done else 0
+    assert stats["batches"] == batches
+    assert stats["frames_sent"] == 2 * (total - first)
+    assert stats["frames_reused"] == 2 * 2 * (batches - 1)
+    assert stats["bytes_sent"] == ref[0].nbytes * 2 * (total - first)
+    for start in range(done, total, bf):
+        count = min(bf, total - start)
+        slots = range(start - 1, start + bf + 1)
+        buf = [np.stack([x[i] if 0 <= i < total else np.zeros_like(x[0])
+                         for i in slots]) for x in (ref, srv)]
+        ph = np.array([pl.frame_phases(cfg, [i])[0] if 0 <= i < total else 0
+                       for i in slots], np.float32)
+        want = pl._process_frames_impl(
+            *(torch.from_numpy(b).to(cuda) for b in buf),
+            torch.from_numpy(ph).to(cuda), cfg).cpu().numpy()
+        np.testing.assert_array_equal(writer.maps[start:start + count],
+                                      want[1:1 + count])
+    assert not writer.maps[:done].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["ls_multiple", "nlms_pallas"])
 def test_process_frames_shmap_one_card_graphed_equals_process_frames(

@@ -330,3 +330,207 @@ def test_clutter_rejects_unknown_method():
     x = torch.zeros((1, 100), dtype=torch.complex64)
     with pytest.raises(ValueError, match="unknown clutter_method"):
         tp._clutter_impl(x, x, cfg)
+
+
+# ---- run_capture's card feed: its plan and host side (feed.py) --------------
+
+class _PairFrames:
+    """A capture of ``n`` frames of (lc, 2) IQ pairs read as run_capture
+    reads it, with one frame before frame 0 (a sharded reader's margin)
+    and one after the last; every sample distinct. ``ref`` and ``srv``
+    differ."""
+
+    def __init__(self, n, lc=5, dtype=np.int16, before=False, after=False):
+        self.num_frames = n
+        self.pair_dtype = np.dtype(dtype)
+        self.frame_margin_before = before
+        self.frame_margin_after = after
+        base = np.arange((n + 2) * lc * 2).reshape(n + 2, lc, 2) + 1
+        self.ref = base.astype(dtype)
+        self.srv = (-base).astype(dtype)
+
+    def read_pair_frames(self, start, count):
+        a = start + 1
+        return self.ref[a:a + count], self.srv[a:a + count]
+
+
+def _buffers_before(reader, cfg, bf, done):
+    """The (bf + 2)-slot buffers of each batch as run_capture assembled
+    them in host buffers before the card feed: (start, count, ref, srv)."""
+    total = min(reader.num_frames, cfg.num_frames)
+    if cfg.strict_frame_parity and total > 0:
+        total -= 1
+    margin_lo = reader.frame_margin_before
+    margin_hi = reader.frame_margin_after or (
+        total < reader.num_frames and not cfg.strict_frame_parity)
+    out = []
+    while done < total:
+        count = min(bf, total - done)
+        lo = done - 1 if (done > 0 or margin_lo) else 0
+        hi = min(total + (1 if margin_hi else 0), done + count + 1)
+        slot0 = 1 - (done - lo)
+        bufs = []
+        for raw in reader.read_pair_frames(lo, hi - lo):
+            buf = np.zeros((bf + 2,) + raw.shape[1:], raw.dtype)
+            buf[slot0:slot0 + hi - lo] = raw
+            bufs.append(buf)
+        out.append((done, count, *bufs))
+        done += count
+    return out
+
+
+def _feed_delta(before):
+    from passiveradar_torch import feed
+    return {k: v - before[k] for k, v in feed.stage_info().items()}
+
+
+@pytest.mark.parametrize("bf", [1, 3, 8])
+@pytest.mark.parametrize("total", ["1", "bf-1", "bf", "bf+1", "3bf+2"])
+def test_feed_plan_assembles_the_buffers_as_before(monkeypatch, bf, total):
+    """The card feed's plan (slots reused on the card, frames read from the
+    host, zero slots), staged through feed.CardFeed on CPU tensors, gives
+    every batch the buffer that the host loop assembled before, on fresh
+    and resumed runs, with and without a sharded reader's margins, a frame
+    past the run, and strict_frame_parity; the host reads each frame
+    once."""
+    from types import SimpleNamespace
+
+    from passiveradar_torch import feed
+    monkeypatch.setattr(feed, "CHUNK_BYTES", 7)
+    total = {"1": 1, "bf-1": bf - 1, "bf": bf, "bf+1": bf + 1,
+             "3bf+2": 3 * bf + 2}[total]
+    lc = 5
+    for resume, before, after, extra, strict in np.ndindex(2, 2, 2, 2, 2):
+        done = total // 2 if resume else 0
+        cfg = SimpleNamespace(num_frames=total + strict,
+                              strict_frame_parity=bool(strict))
+        reader = _PairFrames(total + strict + extra, lc, before=bool(before),
+                             after=bool(after))
+        writer = SimpleNamespace(frames_done=done)
+        want = _buffers_before(reader, cfg, bf, done)
+        n, batches = tp.capture_batches(reader, writer, cfg, bf, reuse=True)
+        assert n == total
+        assert [(b.start, b.count) for b in batches] == \
+            [w[:2] for w in want]
+        assert [b.reuse for b in batches] == \
+            [0] + [2] * (len(batches) - 1) if batches else total == 0
+        # the reads tile the frames the buffers hold: each is read once
+        reads = [b.read for b in batches]
+        for (a, k), (a2, _) in zip(reads, reads[1:]):
+            assert a + k == a2
+        counted = feed.stage_info()
+        card = feed.CardFeed(bf + 2, lc, torch.int16, torch.device("cpu"))
+        for b, (_, _, ref, srv) in zip(batches, want):
+            got = card.stage(b, reader.read_pair_frames(*b.read))
+            card.consumed()
+            np.testing.assert_array_equal(got[0].numpy(), ref)
+            np.testing.assert_array_equal(got[1].numpy(), srv)
+        card.close()
+        held = sum(b.hi - b.lo for b in batches)
+        assert _feed_delta(counted) == dict(
+            calls=1, batches=len(batches),
+            frames_sent=2 * sum(k for _, k in reads),
+            frames_reused=2 * 2 * max(len(batches) - 1, 0),
+            frames_zeroed=2 * ((bf + 2) * len(batches) - held),
+            bytes_sent=2 * sum(k for _, k in reads) * lc * 2 * 2,
+            chunks=2 * sum(-(-k * lc * 4 // 7) for _, k in reads),
+            slot_waits=0)
+
+
+def _frames_of(dtype, n, lc, seed):
+    """``n`` frames of IQ as a reader gives them: int16 or float32 pairs
+    (n, lc, 2), or complex64 (n, lc)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-30000, 30000, size=(n, lc, 2))
+    if dtype == "int16":
+        return x.astype(np.int16)
+    x = x.astype(np.float32) / 7
+    return x if dtype == "float32" else \
+        x.view(np.complex64).reshape(n, lc)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32", "complex64"])
+@pytest.mark.parametrize("chunk_bytes", [7, 27, 100])
+@pytest.mark.parametrize("layout", ["contiguous", "strided_frames",
+                                    "column_major", "read_only"])
+def test_chunk_stager_lands_the_bytes(monkeypatch, dtype, chunk_bytes,
+                                      layout):
+    """The stager's host side on a CPU target (no events): chunk sizes that
+    do not divide a frame (20 or 40 bytes), int16 and float32 pairs and
+    complex64 viewed as float32 pairs, a contiguous source, two that are
+    not (frames apart; frames not contiguous themselves) and a read-only
+    one (as ``np.frombuffer`` gives, read without a warning); the bytes
+    land exactly and the counters add up."""
+    import warnings
+
+    from passiveradar_torch import feed
+    monkeypatch.setattr(feed, "CHUNK_BYTES", chunk_bytes)
+    lc, bf, total = 5, 3, 10
+    step = 2 if layout == "strided_frames" else 1
+    chans = [_frames_of(dtype, step * (total + 1), lc, seed)[::step]
+             for seed in (chunk_bytes, chunk_bytes + 1)]
+    if layout == "column_major":
+        chans = [np.asfortranarray(x) for x in chans]
+    for x in chans:
+        x.flags.writeable = layout != "read_only"
+    assert chans[0].flags.c_contiguous == (layout in ("contiguous",
+                                                      "read_only"))
+    tdt = torch.int16 if dtype == "int16" else torch.float32
+    fb = lc * 2 * (2 if dtype == "int16" else 4)
+    batches = feed.plan_batches(total, bf, 0, False, True, reuse=True)
+    counted = feed.stage_info()
+    card = feed.CardFeed(bf + 2, lc, tdt, torch.device("cpu"))
+    chunks = 0
+    for b in batches:
+        a, k = b.read
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = card.stage(b, [x[a:a + k] for x in chans])
+        card.consumed()
+        for x, g in zip(chans, got):
+            pairs = np.ascontiguousarray(x).view(np.float32).reshape(
+                -1, lc, 2) if dtype == "complex64" else x
+            want = np.zeros((bf + 2, lc, 2), pairs.dtype)
+            want[b.first_slot:b.first_slot + b.hi - b.lo] = pairs[b.lo:b.hi]
+            np.testing.assert_array_equal(g.numpy(), want)
+        chunks += 2 * -(-k * fb // chunk_bytes)
+    card.close()
+    sent = 2 * sum(b.read[1] for b in batches)
+    assert sent == 2 * (total + 1)
+    delta = _feed_delta(counted)
+    assert delta["frames_sent"] == sent
+    assert delta["frames_reused"] == 2 * 2 * (len(batches) - 1)
+    assert delta["bytes_sent"] == sent * fb
+    assert delta["chunks"] == chunks
+    assert delta["slot_waits"] == 0
+
+
+def test_chunk_stager_refuses_a_source_of_the_wrong_size(monkeypatch):
+    """A source with other than the batch's frames is refused with a clear
+    error."""
+    from passiveradar_torch import feed
+    monkeypatch.setattr(feed, "CHUNK_BYTES", 7)
+    lc, bf = 5, 3
+    x = _frames_of("int16", 4, lc, 0)
+    card = feed.CardFeed(bf + 2, lc, torch.int16, torch.device("cpu"))
+    b = feed.plan_batches(3, bf, 0, False, True, reuse=True)[0]
+    with pytest.raises(ValueError, match="expected 4 frames"):
+        card.stage(b, (x[:3], x[:3]))
+    card.close()
+
+
+def test_chunk_stager_refuses_unequal_lengths_before_copying(monkeypatch):
+    """A job whose source and target differ in length is refused before
+    any job's bytes are copied or counted."""
+    from passiveradar_torch import feed
+    monkeypatch.setattr(feed, "CHUNK_BYTES", 3)
+    stager = feed.ChunkStager(torch.device("cpu"))
+    src = torch.arange(10, dtype=torch.uint8)
+    good, bad = torch.zeros(10, dtype=torch.uint8), torch.zeros(
+        9, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="10 source bytes for 9"):
+        stager.send([(src, good), (src, bad)])
+    assert not good.any() and not stager.counts
+    stager.send([(src, good)])
+    assert torch.equal(good, src)
+    assert stager.counts == {"chunks": 4, "bytes_sent": 10}
