@@ -27,10 +27,11 @@ them) that way; ``ops/clutter_graph.py`` (the LS stage) and
   a new graph takes it over the budget, the least recently used graphs are
   dropped, after the device has finished its work. ``cache_info`` lists
   them.
-* A replay does not call the kernel wrappers, so at capture the launches
-  of each counted kernel (``counters``) are taken off again and recorded
-  with the wrapper that counts them, and each replay adds them: a counter
-  counts the launches that ran.
+* A replay does not call the kernel wrappers, so at capture the counts
+  of each counted kernel (``counters``: its ``launches``, and its other
+  ``COUNTS`` where it keeps them) are taken off again and recorded with
+  the wrapper that keeps them, and each replay adds them: a counter counts
+  the launches that ran, and what they did.
 * A key's warm-up and capture is a ``graph.capture/<kind>`` span
   (``spans.py``): one inside a measured window means a graph was built
   again (an eviction, or a key that changes every call).
@@ -53,6 +54,8 @@ import torch
 from passiveradar_torch.spans import span
 
 BUDGET_SHARE = 0.4       # of a card's memory, for the kept graphs' pools
+# a kernel wrapper's counters that a replay adds to (``launches`` always)
+COUNTS = ("launches", "frames")
 
 
 @dataclass
@@ -62,7 +65,7 @@ class Graph:
     outputs: tuple              # static outputs, overwritten by each replay
     single: bool                # run returned one tensor, not a tuple
     launches: dict              # counted kernel launches a replay
-    counted: tuple              # (wrapper, launches a replay) pairs
+    counted: tuple              # (wrapper, counter, count a replay)
     pool_bytes: int
     warmup_s: float
     capture_s: float
@@ -75,7 +78,7 @@ _graphs: dict = {}          # device index → OrderedDict(key → Graph)
 
 
 def counters() -> dict:
-    """The port's kernel wrappers, whose ``launches`` a replay adds to; a
+    """The port's kernel wrappers, whose ``COUNTS`` a replay adds to; a
     stand-in put in a wrapper's place (a reference route) counts nothing
     and is left out."""
     from passiveradar_torch.detect import tracker_kernel
@@ -175,21 +178,27 @@ def _capture(inputs: tuple, run) -> tuple:
         # dropped graphs left cached is given back first
         torch.cuda.empty_cache()
     kernels = counters()
-    before = {name: c.launches for name, c in kernels.items()}
+    before = {(name, attr): getattr(c, attr)
+              for name, c in kernels.items() for attr in COUNTS
+              if hasattr(c, attr)}
     reserved = _reserved(dev)
     t0 = time.perf_counter()
     try:
         graph, static_out = _record(static, run)
     finally:
-        # the captured launches did not run: take them off again
-        launches = {name: c.launches - before[name]
-                    for name, c in kernels.items()
-                    if c.launches != before[name]}
-        for name, c in kernels.items():
-            c.launches = before[name]
+        # the captured launches did not run: take their counts off again
+        taken = {}
+        for (name, attr), n in before.items():
+            c = kernels[name]
+            if getattr(c, attr) != n:
+                taken[name, attr] = getattr(c, attr) - n
+            setattr(c, attr, n)
     entry = Graph(graph, static, _tensors(static_out),
-                  torch.is_tensor(static_out), launches,
-                  tuple((kernels[name], n) for name, n in launches.items()),
+                  torch.is_tensor(static_out),
+                  {name: n for (name, attr), n in taken.items()
+                   if attr == "launches"},
+                  tuple((kernels[name], attr, n)
+                        for (name, attr), n in taken.items()),
                   _reserved(dev) - reserved, warmup_s,
                   time.perf_counter() - t0)
     return out, entry
@@ -229,8 +238,8 @@ def replay(entry: Graph) -> tuple:
     stream) and count its launches. Returns its static outputs."""
     with _device(entry.inputs[0].device):
         entry.graph.replay()
-    for wrapper, n in entry.counted:
-        wrapper.launches += n
+    for wrapper, attr, n in entry.counted:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
     entry.replays += 1
     return entry.outputs
 

@@ -33,7 +33,8 @@ note says what bounds it and how zero windows are kept exact. On a CPU
 tensor the wrapper runs ``nlms_filter_batch_plain``, a loop over the steps
 vectorised over frames, in complex64; on a CUDA tensor it always launches
 the kernel, on the tensor's card, and raises if the build or the launch
-fails. ``nlms_filter_batch.launches`` counts kernel launches.
+fails. ``nlms_filter_batch.launches`` counts kernel launches and
+``nlms_filter_batch.frames`` the frames they filtered.
 """
 
 from __future__ import annotations
@@ -176,7 +177,9 @@ def nlms_filter_batch(ref: torch.Tensor, srv: torch.Tensor, filter_len: int,
         raise RuntimeError("nlms kernel launch failed: "
                            + lib.nlms_error_string(err).decode())
     nlms_filter_batch.launches += 1
+    nlms_filter_batch.frames += b
     return _finish(out, w, squeeze, return_filter)
 
 
 nlms_filter_batch.launches = 0
+nlms_filter_batch.frames = 0

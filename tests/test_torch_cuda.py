@@ -1224,6 +1224,22 @@ def test_batch_graph_matches_eager(cuda, monkeypatch, method, dtype, fused,
 
 
 @pytest.mark.cuda
+def test_batch_graph_counts_the_nlms_frames_it_filters(cuda):
+    """``nlms_filter_batch.frames`` beside ``launches`` through the batch
+    graph: each call of process_frames (the warm-up, then replays) adds
+    one launch and the batch's frames."""
+    from passiveradar_torch import pipeline as pl
+    cfg, ref, srv, ph = _graph_batch(cuda, "int16",
+                                     clutter_method="nlms_pallas")
+    launches = nk.nlms_filter_batch.launches
+    frames = nk.nlms_filter_batch.frames
+    for i in range(1, 4):
+        pl.process_frames(ref, srv, ph, cfg)
+        assert (nk.nlms_filter_batch.launches - launches,
+                nk.nlms_filter_batch.frames - frames) == (i, i * ref.shape[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", _IMPLS)
 @pytest.mark.parametrize("solver", _SOLVERS)
 def test_batch_graph_every_canceller_matches_eager(cuda, impl, solver):
