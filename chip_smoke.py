@@ -8,8 +8,7 @@ Phases, one JSON line each; any failure exits non-zero:
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: every csrc/*.cu for sm_90a (the five kernels: the resampler,
    NLMS, the fused FFT, the tracker step and the LS canceller's Levinson
-   recursion), csrc/nlms.cu again at the block
-   length NLMS_OTHER_BLOCK and csrc/mix_regroup.cu again at each setting of
+   recursion), csrc/mix_regroup.cu again at each setting of
    MR_VARIANTS, one nvcc each, all started at once, from the checkout, with
    ptxas' registers and spills;
 3. kernels: every CUDA kernel against its plain torch version on the card,
@@ -23,8 +22,10 @@ Phases, one JSON line each; any failure exits non-zero:
    length, forward and inverse, at one and three frames, also against
    cuFFT, and on a strided view), with times (kernel, plain version, one
    library call where there is one) and the reckoned bound; the NLMS
-   kernel also at the shape of bench_nlms.py and, built with its default
-   block length and with NLMS_OTHER_BLOCK, at the FM shape (the P table);
+   kernel also at the shape of bench_nlms.py and, for each frame count of
+   NLMS_DESIGN_FRAMES, at the FM length in µs a block with the CTAs a
+   frame that the launch took, each design also checked (the
+   design table);
    the FFT at a stream push's shapes and at that of bench_fft_fused.py,
    with its device time per pass and cuFFT's; then the whole chain on the
    card against the CPU at a small geometry, for the LS and both NLMS
@@ -203,7 +204,10 @@ STEADY_RUNS = 10
 NLMS_TOL = 1e-5
 NLMS_CHECK_N = 16384     # length of the kernel-vs-plain checks
 NLMS_EDGE_N = 4096       # length of the block-edge checks: steps % P == 7
-NLMS_OTHER_BLOCK = 64    # csrc/nlms.cu's P table: this against the default
+# csrc/nlms.cu's design table: frame counts timed at the FM length (a
+# push's 1, the FM batch's 10, bench_nlms.py's 128, two frames an SM), and
+# on each side of the card's cluster count, found at run time ("edges")
+NLMS_DESIGN_FRAMES = (1, 10, 128, 264)
 NLMS_BENCH = dict(B=128, N=262144, filter_len=175, peek=10)  # bench_nlms.py
 FFT_BENCH = (8, 262144)  # bench_fft_fused.py
 # csrc/mix_regroup.cu's config table: its defaults, and the builds timed
@@ -633,14 +637,16 @@ def nlms_inputs(torch, gen, dev, f, n):
     return ref, srv
 
 
-def phase_nlms_kernels(torch, dev, other_block_lib):
+def phase_nlms_kernels(torch, dev):
     """The NLMS kernel against its plain version: both zero-window modes
     with zero windows in one frame, a ragged tap count, a warm start, and
     the block form's edges (a zero run from a block's first step and from
     mid-block, in both modes, steps no multiple of P, m = 512); timed at
-    the FM shape and bench_nlms.py's; then the P table: the default build
-    and ``other_block_lib`` (csrc/nlms.cu at NLMS_OTHER_BLOCK), each checked
-    and timed at the FM shape."""
+    the FM shape and bench_nlms.py's; then the design table: each design
+    (a cluster of two CTAs a frame, or one CTA alone, picked by the frame
+    count) checked at its first frame count, and the kernel timed at the FM
+    length at NLMS_DESIGN_FRAMES and on each side of the card's cluster
+    count."""
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.ops import nlms_kernel as nk
 
@@ -718,21 +724,31 @@ def phase_nlms_kernels(torch, dev, other_block_lib):
     bench_flops = 16.0 * bm * (bn - bm) * bb
     del ref, srv
 
-    # the P table: each build checked (zero run mid-block, "nan") and timed
-    # at the FM shape
-    ref, srv = nlms_inputs(torch, gen, dev, f, big_n)
-    r, v = nlms_inputs(torch, gen, dev, 3, NLMS_EDGE_N)
-    r[1, 40 * 64 + 14:40 * 64 + 14 + m + 50] = 0
+    # the design table: the CTAs a frame by frame count, each design checked
+    # (zero run mid-block, "nan") at its first frame count, and the kernel
+    # timed at the FM length on each side of every change of design
+    ctas = [nk.cluster_ctas(k, dev) for k in range(1, 2 * max(
+        NLMS_DESIGN_FRAMES))]
+    firsts = {c: ctas.index(c) + 1 for c in sorted(set(ctas), reverse=True)}
+    edges = {e for k in firsts.values() if k > 1 for e in (k - 1, k)}
+    designs = {}
+    for c, k in firsts.items():
+        r, v = nlms_inputs(torch, gen, dev, max(k, 3), NLMS_EDGE_N)
+        r[1, 40 * p_block + 14:40 * p_block + 14 + m + 50] = 0
+        err, peak, _ = check_nlms(torch, nk, r, v, flen, mu,
+                                  zero_window="nan", return_filter=True)
+        designs[str(c)] = dict(first_frames=k, checked_frames=max(k, 3),
+                               rel_err=err / peak)
+        del r, v
+    blocks = -(-steps // p_block)
     table = {}
-    for lib in (nk._library(), other_block_lib):
-        with mock.patch.object(nk, "_library", return_value=lib):
-            err, peak, _ = check_nlms(torch, nk, r, v, flen, mu,
-                                      zero_window="nan", return_filter=True)
-            p_ms = cuda_ms(torch, lambda: nk.nlms_filter_batch(
-                ref, srv, flen, mu), 3, warmup=1)
-        table[str(lib.nlms_block_steps())] = dict(
-            kernel_ms=p_ms, ns_per_step=p_ms * 1e6 / steps, rel_err=err / peak)
-    del r, v, ref, srv
+    ref, srv = nlms_inputs(torch, gen, dev, max(NLMS_DESIGN_FRAMES), big_n)
+    for k in sorted(set(NLMS_DESIGN_FRAMES) | edges):
+        k_ms = cuda_ms(torch, lambda: nk.nlms_filter_batch(
+            ref[:k], srv[:k], flen, mu), 3, warmup=1)
+        table[str(k)] = dict(ctas=nk.cluster_ctas(k, dev), kernel_ms=k_ms,
+                             us_a_block=k_ms * 1e3 / blocks)
+    del ref, srv
 
     row = dict(name="nlms_filter_pallas", route="cuda",
                source="passiveradar_torch/csrc/nlms.cu",
@@ -753,7 +769,7 @@ def phase_nlms_kernels(torch, dev, other_block_lib):
                                     ns_per_step=bench_ms * 1e6 / (bn - bm),
                                     gflops_per_s=bench_flops / bench_ms
                                     / 1e6),
-              block_table=table))
+              designs=designs, design_table=table))
     return row
 
 
@@ -4312,17 +4328,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    other_block = {"NLMS_BLOCK": NLMS_OTHER_BLOCK}
-    built = cuda_build.build(force=True, variants=(
-        ("nlms", other_block),
-        *(("mix_regroup", v) for v in MR_VARIANTS)))
+    built = cuda_build.build(force=True, variants=tuple(
+        ("mix_regroup", v) for v in MR_VARIANTS))
     for name, b in built.items():
         emit(dict(phase="build", library=name,
                   source=f"passiveradar_torch/csrc/{name.split('-')[0]}.cu",
                   seconds=b["seconds"], ptxas=ptxas_summary(b["log"])))
-    from passiveradar_torch.ops import nlms_kernel as nk
-    other_block_lib = nk.bind(ctypes.CDLL(cuda_build.library_path(
-        "nlms", other_block)))
 
     from passiveradar_torch.ops import resample_kernel as rk
     variant_libs = [(MR_DEFAULTS, rk._library())] + [
@@ -4330,7 +4341,7 @@ def main() -> int:
             cuda_build.library_path("mix_regroup", v)))) for v in MR_VARIANTS]
 
     row = phase_kernels(torch, dev, variant_libs)
-    row_nlms = phase_nlms_kernels(torch, dev, other_block_lib)
+    row_nlms = phase_nlms_kernels(torch, dev)
     row_fft = phase_fft_kernels(torch, dev)
     phase_chain_parity(torch, dev)
     phase_nlms_chain_parity(torch, dev)

@@ -24,11 +24,15 @@ counterpart here.
 
 Kernel (``csrc/nlms.cu``, CUDA C++ for sm_90a, built by
 ``ops/cuda_build.py`` and bound with ctypes): the exact block form of the
-recurrence, one CTA of 8 warps per frame. For each block of P steps the
-helper warps build the block's Gram u_iᴴu_j and the step sizes from ref
-alone (during the previous block's solve), all warps take the P dot
-products w₀ᴴu_j, one warp solves the P-step triangular recurrence with a
-shuffle broadcast a step, and all warps apply the rank-P tap update; its
+recurrence. Over a block of P steps the errors solve (I + L) e = c, L
+built from ref alone (the block's Gram u_iᴴu_j and step sizes). While the
+card holds a launch's clusters at once, each frame takes a thread-block
+cluster of two CTAs: a producer forms M = (I + L)⁻¹ ahead and hands it to
+the chain's CTA through distributed shared memory; there all warps take
+the P dot products c = d − w₀ᴴu_j, one warp takes e = M c as a dense
+product, and all warps apply the rank-P tap update. Past that
+(``cluster_ctas``), a second kernel takes one CTA a frame, whose warp 0
+solves each block step by step while its other warps build the Gram. Its
 note says what bounds it and how zero windows are kept exact. On a CPU
 tensor the wrapper runs ``nlms_filter_batch_plain``, a loop over the steps
 vectorised over frames, in complex64; on a CUDA tensor it always launches
@@ -58,6 +62,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.nlms_launch.restype = ctypes.c_int
+    lib.nlms_cluster_ctas.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
+    lib.nlms_cluster_ctas.restype = ctypes.c_int
     lib.nlms_block_steps.argtypes = []
     lib.nlms_block_steps.restype = ctypes.c_int
     lib.nlms_error_string.argtypes = [ctypes.c_int]
@@ -68,6 +75,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _library() -> ctypes.CDLL:
     return bind(cuda_build.load("nlms"))
+
+
+def cluster_ctas(frames: int, device=None) -> int:
+    """The CTAs a frame of a kernel launch of ``frames`` frames on
+    ``device`` (a CUDA device; the current one if None): 2 (the chain and
+    a producer) while the card holds every frame's cluster at once, else 1
+    (the kernel that solves each block itself)."""
+    device = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    lib = _library()
+    ctas = ctypes.c_int()
+    err = lib.nlms_cluster_ctas(frames, index, ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError("nlms cluster query failed: "
+                           + lib.nlms_error_string(err).decode())
+    return ctas.value
 
 
 def _prepare(ref, srv, filter_len, peek, initial_taps, zero_window):

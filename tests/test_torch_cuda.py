@@ -233,6 +233,106 @@ def test_nlms_kernel_block_edges_match_plain(cuda, where, flen, zero_window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("zero_window", ["zero", "nan"])
+@pytest.mark.parametrize("flen", [175, 502])
+def test_nlms_kernel_tiny_sample_after_zero_run_matches_plain(cuda, flen,
+                                                              zero_window):
+    """A zero run whose first sample after it is scaled by 1e-4, the run
+    ending at a block's edge: the windows at its far edge hold that one
+    small sample, so u^H u is ~1e-8 and M's entries are large there; m =
+    185 and 512, both zero-window semantics."""
+    m = flen + 10
+    n = 4003
+    p_block = nk._library().nlms_block_steps()
+    start = 5 * p_block + 1
+    # the first window holding ref[end] is step 12 P, a block's first
+    end = 12 * p_block + m
+    gen = torch.Generator(device=cuda).manual_seed(end + flen)
+    ref = torch.randn((3, n), dtype=torch.complex64, generator=gen,
+                      device=cuda)
+    ref[1, start:end] = 0
+    ref[1, end] *= 1e-4
+    srv = 0.5 * torch.roll(ref, 3, dims=1) + 0.1 * torch.randn(
+        (3, n), dtype=torch.complex64, generator=gen, device=cuda)
+    got, gtaps = nk.nlms_filter_batch(ref, srv, flen, 0.05,
+                                      return_filter=True,
+                                      zero_window=zero_window)
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, flen, 0.05,
+                                             return_filter=True,
+                                             zero_window=zero_window)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+    assert torch.isnan(got[1]).any() == (zero_window == "nan")
+
+
+@pytest.mark.cuda
+def test_nlms_kernel_push_shape_matches_plain(cuda):
+    """One frame of 262,144 samples at the FM taps, as a stream's push
+    launches it (F = 1), against the plain version."""
+    ref, srv = _nlms_inputs(cuda, 2, 262_144, 185, 3)
+    ref, srv = ref[:1].contiguous(), srv[:1].contiguous()
+    got, gtaps = nk.nlms_filter_batch(ref, srv, 175, 0.05,
+                                      return_filter=True)
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, 175, 0.05,
+                                             return_filter=True)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+
+
+def _first_frames(cuda, ctas):
+    """The fewest frames whose kernel launch takes ``ctas`` CTAs a frame."""
+    for frames in range(1, 1024):
+        if nk.cluster_ctas(frames, cuda) == ctas:
+            return frames
+    raise AssertionError(f"no launch of under 1024 frames takes {ctas} "
+                         f"CTAs a frame")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_window", ["zero", "nan"])
+@pytest.mark.parametrize("ctas,flen,peek,warm", [
+    (2, 175, 10, False), (2, 23, 10, False), (1, 175, 10, False),
+    (1, 23, 10, False), (1, 502, 10, False), (1, 1, 0, False),
+    (1, 175, 10, True), (2, 175, 10, True)])
+def test_nlms_kernel_each_cluster_design_matches_plain(cuda, ctas, flen,
+                                                       peek, warm,
+                                                       zero_window):
+    """Each design that the frame count picks (a cluster of the chain and
+    a producer, or one CTA that solves each block) at the fewest frames
+    (at least 3) that take it, against the plain version: m = 1, 33,
+    185 and 512, both zero-window semantics, a warm start, frame 1 with
+    all-zero windows and frame 2 with a zero run ending at a block's edge
+    and a 1e-4 sample after it."""
+    frames = max(3, _first_frames(cuda, ctas))
+    assert nk.cluster_ctas(frames, cuda) == ctas
+    m = flen + peek
+    n = 2003
+    ref, srv = _nlms_inputs(cuda, frames, n, m, 31 * ctas + flen)
+    end = 12 * nk._library().nlms_block_steps() + m
+    ref[2, end - m - 60:end] = 0
+    ref[2, end] *= 1e-4
+    taps = None
+    if warm:
+        _, taps = nk.nlms_filter_batch_plain(ref[:, :700], srv[:, :700],
+                                             flen, 0.05, peek=peek,
+                                             return_filter=True)
+    got, gtaps = nk.nlms_filter_batch(ref, srv, flen, 0.05, peek=peek,
+                                      return_filter=True, initial_taps=taps,
+                                      zero_window=zero_window)
+    want, wtaps = nk.nlms_filter_batch_plain(ref, srv, flen, 0.05, peek=peek,
+                                             return_filter=True,
+                                             initial_taps=taps,
+                                             zero_window=zero_window)
+    torch.cuda.synchronize()
+    _assert_nlms_agree(got, want)
+    _assert_nlms_agree(gtaps, wtaps)
+    assert torch.isnan(got[1]).any() == (zero_window == "nan")
+    assert not torch.isnan(got[0]).any()
+
+
+@pytest.mark.cuda
 def test_kernels_launch_on_the_tensors_card(cuda):
     """Inputs on card 1 while card 0 is current: both kernels launch there,
     agree with their plain versions and leave card 0 current."""

@@ -31,10 +31,39 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+def _inverse(gs):
+    """M = (I + L)⁻¹ for L[j, i] = gs[i, j] (i < j), as the kernel forms it:
+    forward substitution on the identity's columns, row i's updates of every
+    later row in the order of i, the strict upper triangle dropped (under
+    "nan" it may hold NaN, which the kernel never stores)."""
+    t_len = gs.shape[0]
+    x = np.eye(t_len, dtype=np.complex64)
+    with np.errstate(invalid="ignore"):
+        for i in range(t_len - 1):
+            x[i + 1:] -= np.outer(gs[i, i + 1:], x[i]).astype(np.complex64)
+    return np.tril(x)
+
+
+def _inverse_product(mat, c):
+    """e = M c as the kernel sums it: four partial sums over i mod 4, i <= j
+    only (M's zero upper triangle is never multiplied)."""
+    t_len = c.shape[0]
+    acc = np.zeros((4, t_len), np.complex64)
+    rows = np.arange(t_len)
+    with np.errstate(invalid="ignore"):
+        for i in range(t_len):
+            acc[i % 4] = np.where(rows >= i, acc[i % 4] + mat[:, i] * c[i],
+                                  acc[i % 4])
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
 def _block_nlms(ref, srv, filter_len, mu, peek=10, block=32,
-                zero_window="zero", initial_taps=None):
+                zero_window="zero", initial_taps=None, form="solve"):
     """One frame through the kernel's block algebra, in float32 (see the
-    module docstring); returns (out, taps in the reference orientation)."""
+    module docstring); returns (out, taps in the reference orientation).
+    ``form`` "solve" runs each block's triangular solve step by step;
+    "inverse" forms M = (I + L)⁻¹ from ref alone and takes e = M c, as
+    csrc/nlms.cu does."""
     ref = np.asarray(ref, np.complex64)
     srv = np.asarray(srv, np.complex64)
     n = ref.shape[0]
@@ -85,8 +114,11 @@ def _block_nlms(ref, srv, filter_len, mu, peek=10, block=32,
         gs = np.triu(s[:, None] * g, 1)
         u = ref[a + np.arange(t_len)[:, None] + np.arange(m)]   # (T, m)
         e = srv[k0 + filter_len:k0 + filter_len + t_len] - u @ np.conj(w)
-        for i in range(t_len - 1):
-            e[i + 1:] -= e[i] * gs[i, i + 1:]
+        if form == "inverse":
+            e = _inverse_product(_inverse(gs), e)
+        else:
+            for i in range(t_len - 1):
+                e[i + 1:] -= e[i] * gs[i, i + 1:]
         out[filter_len + k0:filter_len + k0 + t_len] = e
         q = (s * np.conj(e)).astype(np.complex64)
         w = w + (q[:, None] * u).sum(0, dtype=np.complex64)
@@ -286,40 +318,50 @@ def test_batch_rejects_bad_arguments(rng, kwargs, match):
         nk.nlms_filter_batch(x, x, **args)
 
 
-def _zero_run(ref, start, length):
-    """ref with a zero run: the first all-zero window is step start - 1."""
+def _zero_run(ref, start, length, tiny=None):
+    """ref with a zero run: the first all-zero window is step start - 1.
+    With ``tiny`` the first sample after the run is scaled by it, so the
+    windows at the run's far edge hold one small sample and take large
+    steps."""
     ref = ref.copy()
     ref[start:start + length] = 0
+    if tiny is not None:
+        ref[start + length] *= tiny
     return ref
 
 
-@pytest.mark.parametrize("n,flen,peek,zero_at,zero_window", [
-    (1000, 23, 10, None, "zero"),       # m = 33; 967 steps = 30 blocks + 7
-    (3000, 175, 10, None, "nan"),       # m = 185, the FM taps; ragged tail
-    (1500, 23, 10, 32 * 20 + 1, "zero"),    # zero run from a block's edge
-    (1500, 23, 10, 32 * 20 + 1, "nan"),
-    (1500, 23, 10, 32 * 20 + 14, "zero"),   # zero run from mid-block
-    (1500, 23, 10, 32 * 20 + 14, "nan"),
-    (4000, 175, 10, 32 * 60 + 1, "nan"),
-    (4000, 175, 10, 32 * 60 + 19, "zero"),
+@pytest.mark.parametrize("form", ["solve", "inverse"])
+@pytest.mark.parametrize("n,flen,peek,zero_at,zero_window,tiny", [
+    (1000, 23, 10, None, "zero", None),  # m = 33; 967 steps = 30 blocks + 7
+    (3000, 175, 10, None, "nan", None),  # m = 185, the FM taps; ragged tail
+    (1500, 23, 10, 32 * 20 + 1, "zero", None),  # zero run from a block's edge
+    (1500, 23, 10, 32 * 20 + 1, "nan", None),
+    (1500, 23, 10, 32 * 20 + 14, "zero", None),  # zero run from mid-block
+    (1500, 23, 10, 32 * 20 + 14, "nan", None),
+    (4000, 175, 10, 32 * 60 + 1, "nan", None),
+    (4000, 175, 10, 32 * 60 + 19, "zero", None),
     # m = 1: blocks of pb = min(P, m) = 1 step, Q = 1
-    (600, 1, 0, None, "zero"),
+    (600, 1, 0, None, "zero", None),
+    # a 1e-4 sample right after the zero run: s_i ~ 1e8 at its far edge
+    (6000, 175, 10, 32 * 60 + 19, "zero", 1e-4),
+    (6000, 175, 10, 32 * 60 + 19, "nan", 1e-4),
 ])
 def test_block_model_matches_scan_and_plain(rng, n, flen, peek, zero_at,
-                                            zero_window):
-    """The kernel's block algebra against the JAX scan and the port's plain
+                                            zero_window, tiny, form):
+    """The kernel's block algebra, by the step-by-step solve and by the
+    inverse M = (I + L)⁻¹, against the JAX scan and the port's plain
     version: within TOL with equal NaN masks. Under 'zero' a zero run
     leaves the taps alone and the scan's NaN does not apply, so there the
     scan is held only up to the first zero window."""
     ref = _cnoise(rng, n)
     m = flen + peek
     if zero_at is not None:
-        ref = _zero_run(ref, zero_at, m + 60)
+        ref = _zero_run(ref, zero_at, m + 60, tiny)
     srv = (0.5 * np.roll(ref, 3) + 0.01 * np.flip(ref)
            + 0.1 * _cnoise(rng, n)).astype(np.complex64)
     mu = 0.05
     got, gtaps = _block_nlms(ref, srv, flen, mu, peek=peek,
-                             zero_window=zero_window)
+                             zero_window=zero_window, form=form)
     want, wtaps = nk.nlms_filter_batch_plain(_t(ref), _t(srv), flen, mu,
                                              peek=peek, return_filter=True,
                                              zero_window=zero_window)
