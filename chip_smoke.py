@@ -986,7 +986,7 @@ def phase_ls_fused(torch, dev, cfg):
 class levinson_route:
     """Context: the clutter stage's Levinson recursion through ``fn`` in
     place of the kernel (``levinson_kernel.levinson_first_col_kernel``,
-    which ops/clutter.py looks up at call time and the clutter graph's key
+    which ops/clutter.py looks up at call time and every graph's key
     holds)."""
 
     def __init__(self, fn):
@@ -1196,10 +1196,23 @@ def phase_levinson_kernel(torch, dev, cfg):
                 library_ms=None)
 
 
+def clutter_key(ref, srv, filter_len, sample_rate, doppler_bins=(0,),
+                solver="levinson", impl="carry"):
+    """The key that ops/clutter.ls_filter_multiple_graphed keeps its graph
+    under for these arguments (graphs.graph_key, kind "clutter")."""
+    from passiveradar_torch.ops import graphs
+    return graphs.graph_key("clutter", (ref, srv), (
+        int(filter_len), float(sample_rate),
+        tuple(float(b) for b in doppler_bins), impl, solver))
+
+
 def graph_entry(key):
-    """The clutter graph kept under ``key`` (ops/clutter_graph.py)."""
-    from passiveradar_torch.ops import clutter_graph as cg
-    return cg._graphs[key[0].index][key]
+    """The graph kept under ``key`` (ops/graphs.py)."""
+    from passiveradar_torch.ops import graphs
+    entry = graphs.lookup(key, key[1])
+    if entry is None:
+        raise AssertionError(f"no graph kept under the key of kind {key[0]}")
+    return entry
 
 
 def eager_vs_graph(torch, eager, graphed, key):
@@ -1258,7 +1271,6 @@ def phase_clutter_graph(torch, dev, cfg):
     kernels, busy and idle share. The replay must equal the eager stage bit
     for bit."""
     from passiveradar_torch.ops import clutter, graphs
-    from passiveradar_torch.ops import clutter_graph as cg
 
     _, _, _, r, s = fm_batch(torch, dev, cfg)
     rc, sc, wcfg = wide_batch(torch, dev)
@@ -1271,8 +1283,8 @@ def phase_clutter_graph(torch, dev, cfg):
                 c.clutter_doppler_bins)
         row = eager_vs_graph(
             torch, lambda args=args: clutter.ls_filter_multiple(*args),
-            lambda args=args: cg.ls_filter_multiple_graphed(*args),
-            cg.graph_key(*args))
+            lambda args=args: clutter.ls_filter_multiple_graphed(*args),
+            clutter_key(*args))
         row.update(rows=x.shape[0], samples=x.shape[1])
         out[name] = row
         if not row["bit_equal"]:
@@ -1289,7 +1301,7 @@ def phase_clutter_graph(torch, dev, cfg):
                 return clutter.ls_filter_multiple(*args)
         if which == "eager_kernel":
             return clutter.ls_filter_multiple(*args)
-        return cg.ls_filter_multiple_graphed(*args)
+        return clutter.ls_filter_multiple_graphed(*args)
 
     for which in runs:
         one(which)
@@ -1316,6 +1328,20 @@ def phase_clutter_graph(torch, dev, cfg):
     if bad:
         raise AssertionError(f"clutter graph replays differ from eager: "
                              f"{ {k: out[k]['rel_diff_over_peak'] for k in bad} }")
+
+
+@contextlib.contextmanager
+def eager_ls_stage(pl):
+    """Context: the pipeline's LS stage eager on the card (what it runs
+    inside a graph being built) in place of its own graph, so that
+    ``pl._process_frames_impl`` is the wholly eager chain."""
+    from passiveradar_torch.ops import clutter
+    graphed = pl.ls_filter_multiple_graphed
+    pl.ls_filter_multiple_graphed = clutter.ls_filter_multiple
+    try:
+        yield
+    finally:
+        pl.ls_filter_multiple_graphed = graphed
 
 
 def bits_equal(torch, got, want) -> bool:
@@ -1362,9 +1388,12 @@ def phase_batch_graph(torch, dev, params):
                 ref, srv = int16_pairs(torch, ref), int16_pairs(torch, srv)
             route = fused_fft if fused else contextlib.nullcontext
             with route():
+                def eager():
+                    with eager_ls_stage(pl):
+                        return pl._process_frames_impl(ref, srv, ph, cfg)
+
                 runs = dict(
-                    eager=lambda: pl._process_frames_impl(
-                        ref, srv, ph, cfg, stage_graph=False),
+                    eager=eager,
                     stage_graph=lambda: pl._process_frames_impl(
                         ref, srv, ph, cfg),
                     batch_graph=lambda: pl.process_frames(ref, srv, ph,
@@ -1375,8 +1404,8 @@ def phase_batch_graph(torch, dev, params):
                 eager_counts = read_counts()
                 stage = runs["stage_graph"]()
                 first = runs["batch_graph"]()
-                key = pl.graph_key("frames", dev, (ref, srv, ph), cfg)
-                entry = graphs.lookup(key, dev)
+                entry = graph_entry(graphs.graph_key(
+                    "frames", (ref, srv, ph), cfg, dev))
                 got = [runs["batch_graph"]() for _ in range(2)]
                 torch.cuda.synchronize()
                 equal = dict(
@@ -1634,15 +1663,15 @@ def push_breakdown(torch, sp, ref, srv, method):
         return multitarget_step(sp._tracks, cf, sp._extent, sp.n_tracks,
                                 cfg.candidate_budget)
 
-    from passiveradar_torch.pipeline import _replayed
+    from passiveradar_torch.ops import graphs
     from passiveradar_torch.streaming import _caf_cfar
     cfar_kernel = tuple(sp.cfar_kernel)
 
     def caf_cfar():
         # the push's CAF + CFAR graph, as StreamingProcessor._finish runs it
-        return _replayed("stream_caf", lambda *a: _caf_cfar(
+        return graphs.graphed("stream_caf", lambda *a: _caf_cfar(
             *a, cfg=cfg, window=sp._window, cfar_kernel=cfar_kernel),
-            (z, r, z, z, s, z), cfg, cfar_kernel)
+            (z, r, z, z, s, z), (cfg, cfar_kernel))
 
     ms = dict(
         clean=cuda_ms(torch, lambda: sp._clean(ref, srv), 5, warmup=1),
@@ -1817,8 +1846,8 @@ def confirmed_near(status, est, point):
 
 def kernel_counters():
     """The five kernels' launch counters by the kernels line's names (the
-    ones a replayed clutter graph adds to)."""
-    from passiveradar_torch.ops.clutter_graph import counters
+    ones a replayed graph adds to)."""
+    from passiveradar_torch.ops.graphs import counters
     return counters()
 
 
@@ -3135,7 +3164,6 @@ def phase_cancellers(torch, dev, params):
     from passiveradar_torch.config import derive_config
     from passiveradar_torch.io.hdf5 import CaptureReader
     from passiveradar_torch.ops import clutter
-    from passiveradar_torch.ops import clutter_graph as cg
     from passiveradar_torch.ops.clutter import IMPLS, SOLVERS
 
     base = derive_config(params)
@@ -3156,7 +3184,7 @@ def phase_cancellers(torch, dev, params):
                 torch, lambda args=args, impl=impl, solver=solver:
                 clutter.ls_filter_multiple(*args, impl=impl, solver=solver),
                 lambda cfg=cfg: pl._clutter_impl(r, s, cfg),
-                cg.graph_key(*args, solver=solver, impl=impl))
+                clutter_key(*args, solver=solver, impl=impl))
             clean = pl._clutter_impl(r, s, cfg)
             maps = pl._caf_batch_impl(r, clean, cfg).cpu().numpy()
             del clean
@@ -3583,10 +3611,9 @@ def phase_dispatch_groups(torch, dev, params, want_stack):
     for x in singles:
         pl.process_frames(*x, cfg)
     pl.process_frames_groups(refs, srvs, phs, cfg, device=dev)
-    one_entry = graphs.lookup(pl.graph_key("frames", dev, singles[0], cfg),
-                              dev)
-    two_entry = graphs.lookup(pl.graph_key("groups", dev, (refs, srvs, phs),
-                                           cfg), dev)
+    one_entry = graph_entry(graphs.graph_key("frames", singles[0], cfg, dev))
+    two_entry = graph_entry(graphs.graph_key("groups", (refs, srvs, phs), cfg,
+                                             dev))
     fns = dict(
         g1_calls_twice=lambda: [pl.process_frames(*x, cfg) for x in singles],
         g2_call=lambda: pl.process_frames_groups(refs, srvs, phs, cfg,

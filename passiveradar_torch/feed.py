@@ -1,4 +1,5 @@
-"""The host → card feed of ``pipeline.run_capture`` on one card.
+"""The batch feed of ``pipeline.run_capture``: host → card on one card,
+host → host on the CPU and under a mesh.
 
 A batch is one (bf + 2)-slot buffer a channel: slot s holds capture frame
 start − 1 + s, so slots 1..count are the frames written and slots 0 and
@@ -6,15 +7,16 @@ count + 1 their CPI-overlap halo. ``plan_batches`` says which capture
 frames [lo, hi) each buffer holds; every other slot is zero (the capture's
 edges, past its end).
 
-On the card each frame crosses from the host once:
+Each frame is read from the reader once:
 
-* **Halo on the card.** Two staging buffers a channel (``CardFeed``), used
-  in turn. Batch i + 1's slots 0 and 1 hold the frames of batch i's slots
-  count and count + 1, so they are a device-to-device copy from the other
-  staging buffer (``Batch.reuse``); the host sends only the frames the card
-  does not hold. The first batch of a call reads its left margin from the
-  host. Zero slots are device memsets.
-* **Chunked staging on a copy stream** (``ChunkStager``). The new frames'
+* **Halo kept.** Two staging buffers a channel (``CardFeed``), used in
+  turn. Batch i + 1's slots 0 and 1 hold the frames of batch i's slots
+  count and count + 1, so they are a copy from the other staging buffer
+  (``Batch.reuse``), on the card where the buffers lie there; the host
+  sends only the frames the buffers do not hold. The first batch of a
+  call reads its left margin from the host. Zero slots are memsets.
+* **Chunked staging on a copy stream** (``ChunkStager``), for buffers on
+  the card; host buffers are written directly. The new frames'
   bytes go through a small ring of pinned chunk slots, each chunk copied
   to the card on a copy stream as soon as it lands in its slot; a slot is
   refilled only after its copy's event has completed. The compute stream
@@ -50,9 +52,10 @@ _totals: collections.Counter = collections.Counter()
 
 def stage_info() -> dict:
     """The counters of every feed since the process started: ``calls``
-    (one a ``run_capture`` call on a card), ``batches``, ``frames_sent``
-    (from the host), ``frames_reused`` (halo slots copied on the card: 2 a
-    batch after a call's first), ``frames_zeroed`` (slots set to zero),
+    (one a ``run_capture`` call), ``batches``, ``frames_sent`` (from the
+    reader's frames), ``frames_reused`` (halo slots copied from the other
+    set: 2 a batch after a call's first), ``frames_zeroed`` (slots set to
+    zero),
     ``bytes_sent``, ``chunks`` and ``slot_waits`` (the loop's thread found
     its next slot's copy to the card not yet done and waited for it)."""
     keys = ("calls", "batches", "frames_sent", "frames_reused",
@@ -83,22 +86,21 @@ class Batch:
 
 
 def plan_batches(total: int, bf: int, done: int, margin_lo: bool,
-                 margin_hi: bool, reuse: bool) -> list:
+                 margin_hi: bool) -> list:
     """The batches of a run over frames [done, total) in batches of ``bf``.
 
     A batch's left halo is frame start − 1 when there is one (a resumed
     run, a sharded reader's ``margin_lo``), its right halo frame
     start + count when the capture holds it (``margin_hi``: the frame after
-    ``total``). With ``reuse`` every batch after the first takes its
-    frames start − 1 and start, the previous batch's last two slots, from
-    the card."""
+    ``total``). Every batch after the first takes its frames start − 1 and
+    start, the previous batch's last two slots, from the other set of
+    buffers."""
     batches = []
     while done < total:
         count = min(bf, total - done)
         lo = done - 1 if (done > 0 or margin_lo) else 0
         hi = min(total + (1 if margin_hi else 0), done + count + 1)
-        batches.append(Batch(done, count, lo, hi,
-                             2 if reuse and batches else 0))
+        batches.append(Batch(done, count, lo, hi, 2 if batches else 0))
         done += count
     return batches
 
@@ -123,19 +125,19 @@ def _host_bytes(src, frames: int, frame_bytes: int) -> torch.Tensor:
 
 
 class ChunkStager:
-    """Host bytes into a tensor on ``device`` through a ring of ``DEPTH``
-    pinned slots of ``CHUNK_BYTES``, filled on the caller's thread, each
-    chunk copied on the copy stream ``stream`` as soon as it lands. On the
-    CPU the slots are plain memory and the copies synchronous: the same
-    host side, with no events."""
+    """Host bytes into a tensor on ``device`` in chunks of ``CHUNK_BYTES``:
+    on a card through a ring of ``DEPTH`` pinned slots, filled on the
+    caller's thread, each chunk copied on the copy stream ``stream`` as
+    soon as it lands; on the CPU straight into the target (the slots exist
+    to make a copy to the card asynchronous), with no events."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.chunk_bytes = CHUNK_BYTES
         self.slots = [torch.empty(CHUNK_BYTES, dtype=torch.uint8,
-                                  pin_memory=self.cuda)
-                      for _ in range(DEPTH)]
+                                  pin_memory=True)
+                      for _ in range(DEPTH if self.cuda else 0)]
         self.events = [None] * DEPTH
         self.turn = 0
         self.counts = collections.Counter()
@@ -151,21 +153,21 @@ class ChunkStager:
         for src, dst in jobs:
             for at in range(0, src.shape[0], self.chunk_bytes):
                 end = min(src.shape[0], at + self.chunk_bytes)
-                k = self.turn
-                self.turn = (k + 1) % len(self.slots)
-                event = self.events[k]
-                if event is not None and not event.query():
-                    self.counts["slot_waits"] += 1
-                    event.synchronize()
-                slot = self.slots[k][:end - at]
-                slot.copy_(src[at:end])
                 if self.cuda:
+                    k = self.turn
+                    self.turn = (k + 1) % len(self.slots)
+                    event = self.events[k]
+                    if event is not None and not event.query():
+                        self.counts["slot_waits"] += 1
+                        event.synchronize()
+                    slot = self.slots[k][:end - at]
+                    slot.copy_(src[at:end])
                     with torch.cuda.stream(self.stream):
                         dst[at:end].copy_(slot, non_blocking=True)
                         self.events[k] = torch.cuda.Event()
                         self.events[k].record(self.stream)
                 else:
-                    dst[at:end].copy_(slot)
+                    dst[at:end].copy_(src[at:end])
                 self.counts.update(chunks=1, bytes_sent=end - at)
 
 
@@ -177,14 +179,16 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 class CardFeed:
     """The two channels' staging buffers of ``run_capture`` on ``device``:
     two sets of (slots, lc, 2) ``dtype`` buffers, used in turn, fed by a
-    ``ChunkStager``. ``stage`` fills one set for a batch and returns it;
-    ``consumed`` marks it read by the work queued on the current stream
-    since."""
+    ``ChunkStager``; host buffers are pinned with ``pin`` (a mesh that
+    copies them to its cards). ``stage`` fills one set for a batch and
+    returns it; ``consumed`` marks it read by the work queued on the
+    current stream since."""
 
     def __init__(self, slots: int, lc: int, dtype: torch.dtype,
-                 device: torch.device, channels: int = 2):
+                 device: torch.device, channels: int = 2, pin: bool = False):
         self.device = device
-        self.sets = [[torch.empty((slots, lc, 2), dtype=dtype, device=device)
+        self.sets = [[torch.empty((slots, lc, 2), dtype=dtype, device=device,
+                                  pin_memory=pin)
                       for _ in range(channels)] for _ in range(2)]
         self.frame_bytes = lc * 2 * self.sets[0][0].element_size()
         self.stager = ChunkStager(device)

@@ -29,8 +29,8 @@ The constant tables of ``ls_filter_multiple`` (phase tables, the bin
 frequencies, the roll ramp, the Toeplitz gather indices, the bin-pair
 indices) are made once per (device, shape, parameter) and kept, so the
 stage copies nothing from the host and can be captured as a CUDA graph
-(ops/clutter_graph.py). Those caches are unbounded: a replayed graph reads
-the tables by address, so they must outlive it.
+(``ls_filter_multiple_graphed``). Those caches are unbounded: a replayed
+graph reads the tables by address, so they must outlive it.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 
 from passiveradar_torch._device import on_device
 from passiveradar_torch.config import nextpow2
-from passiveradar_torch.ops import levinson_kernel
+from passiveradar_torch.ops import graphs, levinson_kernel
 from passiveradar_torch.ops.fft import fft_auto, ifft_auto
 from passiveradar_torch.ops.mixer import frequency_shift
 from passiveradar_torch.ops.nlms_kernel import nlms_filter_batch
@@ -467,6 +467,29 @@ def ls_filter_multiple(ref, srv, filter_len: int, sample_rate: float,
                segment=_ls_multiple_segment)[impl]
     out = run(ref, srv, filter_len, sample_rate, doppler_bins, solver)
     return out[0] if single else out
+
+
+def ls_filter_multiple_graphed(ref: torch.Tensor, srv: torch.Tensor,
+                               filter_len: int, sample_rate: float,
+                               doppler_bins=(0,), solver: str = "levinson",
+                               impl: str = "carry") -> torch.Tensor:
+    """``ls_filter_multiple`` on tensors, as a replayed CUDA graph on the
+    card (ops/graphs.graphed, kind "clutter"): the eager stage is a few
+    hundred small launches a batch, the Levinson kernel among them, and a
+    replay is one graph launch. The key holds the shapes, ``filter_len``,
+    the sample rate, the bins, impl and solver, and the route. Every impl
+    × solver is captured (cuSOLVER and cuBLAS calls too). The eager stage
+    on CPU tensors and inside a graph being built. Returns a fresh
+    tensor."""
+    ref = ref.to(torch.complex64)
+    srv = srv.to(device=ref.device, dtype=torch.complex64)
+    params = (int(filter_len), float(sample_rate),
+              tuple(float(b) for b in doppler_bins), impl, solver)
+    return graphs.graphed(
+        "clutter", lambda r, s: ls_filter_multiple(
+            r, s, filter_len, sample_rate, doppler_bins, solver=solver,
+            impl=impl), (ref, srv), params,
+        info=dict(impl=impl, solver=solver))
 
 
 def _ls_multiple_carry(ref, srv, filter_len, sample_rate, doppler_bins,

@@ -154,7 +154,7 @@ def _device_state(n: int, index: int) -> tuple:
     """What a launch at length n on card ``index`` needs besides x: the
     split, the tables' addresses, the bound entry point, and the tables
     themselves (held here so that their addresses stay valid, also for the
-    CUDA graphs of ops/clutter_graph.py that replay a launch)."""
+    CUDA graphs of ops/graphs.py that replay a launch)."""
     tw_r, tw_c = _kernel_tables(n, torch.device("cuda", index))
     return (*_SPLITS[n], tw_r.data_ptr(), tw_c.data_ptr(),
             _library().fft_fused_launch, (tw_r, tw_c))

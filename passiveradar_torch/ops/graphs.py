@@ -4,11 +4,14 @@ The JAX package compiles each stage entry point, and the whole batch, into
 one XLA program. The port's counterpart is a ``torch.cuda.CUDAGraph``
 captured once per key and replayed: the eager chain is a few hundred small
 launches a batch, so its time is the host's enqueue, and a replay is one
-graph launch. ``call(kind, key, inputs, run)`` runs ``run(*inputs)`` (a
-pure function of a tuple of tensors that returns a tensor or a tuple of
-them) that way; ``ops/clutter_graph.py`` (the LS stage) and
-``pipeline.py``'s entry points are its users.
+graph launch. ``graphed(kind, run, inputs, params)`` runs ``run(*inputs)``
+(a pure function of a tuple of tensors that returns a tensor or a tuple of
+them) that way for every user: ``pipeline.py``, ``streaming.py`` and
+``ops/clutter.py``'s LS stage.
 
+* CPU tensors run ``run`` eagerly, and so does a ``graphed`` call inside a
+  graph being built: the outer graph holds its launches (a capture cannot
+  start inside another).
 * The first call for a key runs ``run`` eagerly on a side stream (the
   warm-up: libraries loaded, cuFFT plans and constant tables made; its
   result is that call's answer), then captures ``run`` on static copies of
@@ -16,11 +19,12 @@ them) that way; ``ops/clutter_graph.py`` (the LS stage) and
   the graph and returns clones of the static outputs (the next replay
   overwrites them). A caller may instead feed the static inputs from
   pinned host buffers and read the static outputs in stream order
-  (``call(..., device=, fresh=False)``, as ``pipeline.run_capture`` does).
-* A key must hold everything that changes what ``run`` would launch: the
-  device, the shapes and dtypes, the parameters and the route (the kernel
-  entry functions looked up at call time). A graph captured under one
-  route never replays under another.
+  (``graphed(..., device=, fresh=False)``, as ``pipeline.run_capture``
+  does).
+* The key (``graph_key``) holds everything that changes what ``run`` would
+  launch: the card, the shapes and dtypes, the parameters and the route
+  (the kernel entry functions looked up at call time). A graph captured
+  under one route never replays under another.
 * Graphs are kept in an LRU a device, each with its own private memory
   pool. The kept pools share one budget a device (``BUDGET_SHARE`` of the
   card's memory), whatever kind of graph holds them; when
@@ -75,23 +79,44 @@ class Graph:
 
 
 _graphs: dict = {}          # device index → OrderedDict(key → Graph)
+_building = 0               # > 0 while capture() warms up or records a graph
 
 
-def counters() -> dict:
-    """The port's kernel wrappers, whose ``COUNTS`` a replay adds to; a
-    stand-in put in a wrapper's place (a reference route) counts nothing
-    and is left out."""
+def kernels() -> dict:
+    """The port's kernel wrappers (B1, B2, B3, T1, L1) as the code looks
+    them up at call time, a stand-in included."""
     from passiveradar_torch.detect import tracker_kernel
     from passiveradar_torch.ops import (fft_kernel, levinson_kernel,
                                         nlms_kernel, resample_kernel)
-    wrappers = dict(
+    return dict(
         mix_regroup_matmul=resample_kernel.mix_regroup_matmul,
         nlms_filter_pallas=nlms_kernel.nlms_filter_batch,
         fft_fused=fft_kernel.fft_fused,
         multitarget_step=tracker_kernel.multitarget_step_kernel,
         levinson_first_col=levinson_kernel.levinson_first_col_kernel)
-    return {name: f for name, f in wrappers.items()
+
+
+def counters() -> dict:
+    """The kernel wrappers whose ``COUNTS`` a replay adds to; a stand-in
+    counts nothing and is left out."""
+    return {name: f for name, f in kernels().items()
             if hasattr(f, "launches")}
+
+
+def route() -> tuple:
+    """What a graphed ``run`` resolves at call time: the fused-FFT opt-in
+    and ``kernels``. A stand-in swapped in gets graphs of its own."""
+    from passiveradar_torch.ops import fft_kernel
+    return (fft_kernel.use_fused(), *kernels().values())
+
+
+def graph_key(kind: str, inputs, params, device=None) -> tuple:
+    """The cache key of a ``graphed`` call: its kind, the card (default:
+    the inputs'), ``params`` (what else ``run`` depends on), each input's
+    shape and dtype, and the route."""
+    dev = card(inputs[0].device if device is None else device)
+    return (kind, dev, params,
+            tuple((tuple(x.shape), x.dtype) for x in inputs), route())
 
 
 def budget(dev: torch.device) -> int:
@@ -218,9 +243,14 @@ def capture(kind: str, key, inputs: tuple, run, info=None):
     """A key's first call: run(*inputs) eagerly (its result is returned),
     then the graph of ``run`` kept under ``key``; graphs over the budget
     are dropped, least recently used first."""
+    global _building
     dev = inputs[0].device
-    with span(f"graph.capture/{kind}"), _device(dev):
-        out, entry = _capture(inputs, run)
+    _building += 1
+    try:
+        with span(f"graph.capture/{kind}"), _device(dev):
+            out, entry = _capture(inputs, run)
+    finally:
+        _building -= 1
     entry.kind, entry.info = kind, dict(info or {})
     cache = _graphs.setdefault(dev.index, collections.OrderedDict())
     cache[key] = entry
@@ -265,3 +295,18 @@ def call(kind: str, key, inputs: tuple, run, info=None, device=None,
         if fresh:
             outs = tuple(t.clone() for t in outs)
     return outs[0] if entry.single else outs
+
+
+def graphed(kind: str, run, inputs: tuple, params, device=None,
+            fresh: bool = True, info=None):
+    """run(*inputs) (see the module docstring): replayed on a card, one
+    graph a ``graph_key``. ``device``, ``fresh`` as for ``call``; ``info``
+    adds to the graph's description in ``cache_info``."""
+    dev = card(inputs[0].device if device is None else device)
+    if dev.type != "cuda" or _building:
+        return run(*inputs)
+    key = graph_key(kind, inputs, params, dev)
+    return call(kind, key, inputs, run, device=dev, fresh=fresh, info=dict(
+        shapes=[list(x.shape) for x in inputs],
+        dtypes=[str(x.dtype) for x in inputs], fused_fft=key[-1][0],
+        **(info or {})))

@@ -32,7 +32,7 @@ def _phase_tables(c: float, n: int):
 @functools.cache
 def _device_phase_tables(c: float, n: int, device: torch.device):
     """``_phase_tables`` on ``device``, kept (unbounded: a replayed CUDA
-    graph reads them by address, ops/clutter_graph.py)."""
+    graph reads them by address, ops/graphs.py)."""
     return tuple(torch.from_numpy(t).to(device) for t in _phase_tables(c, n))
 
 

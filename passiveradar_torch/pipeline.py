@@ -15,21 +15,24 @@ Port of the JAX package's pipeline.py. Per batch of frames:
 On the card every entry point (``preprocess_batch``, ``caf_batch``,
 ``process_frames``, ``process_frames_groups``, each shard of
 ``process_frames_shmap``) replays a CUDA graph of its eager chain, one a
-``graph_key`` (ops/graphs.py): the counterparts of the JAX package's
+key (ops/graphs.graphed): the counterparts of the JAX package's
 ``_preprocess_jit``, ``_caf_jit``, ``_process_frames_jit`` and
 ``_process_frames_groups_jit``. ``clutter_batch`` replays the LS stage's
-graph (ops/clutter_graph.py). CPU tensors run the eager chain.
+graph (ops/clutter.ls_filter_multiple_graphed), which a graph being built
+holds as eager launches. CPU tensors run the eager chain.
 
 ``run_capture`` is the host loop: fixed bf+2-frame buffers with a one-frame
 halo margin on each side, and one batch of device work in flight while the
 host writes the previous batch's maps and the prefetch thread reads the
-next one from disk. On one card each frame crosses from the host once
-(feed.py: the halo kept on the card, the new frames streamed in chunks on
-a copy stream into staging buffers that feed the batch graph's static
-inputs); the maps come out of its static output into pinned buffers
-without waiting. A batch runs on one device (``process_frames``) or split
-over the devices of a frame mesh (``process_frames_shmap``: the halo is
-then an exchange between shards, fed from pinned host buffers).
+next one from disk. Every batch is assembled by feed.py: each frame is
+read once, a batch's halo is the previous batch's last two slots, kept
+where the buffers lie. On one card the buffers lie there (the new frames
+streamed in chunks on a copy stream into staging buffers that feed the
+batch graph's static inputs; the maps come out of its static output into
+pinned buffers without waiting); on the CPU and under a mesh they are host
+tensors. A batch runs on one device (``process_frames``) or split over the
+devices of a frame mesh (``process_frames_shmap``: the halo is then an
+exchange between shards).
 ``process_frames_groups`` runs G stacked batches a call.
 """
 
@@ -45,11 +48,9 @@ from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.feed import CardFeed, plan_batches
 from passiveradar_torch.io.hdf5 import PrefetchReader
-from passiveradar_torch.ops import (fft_kernel, graphs, levinson_kernel,
-                                    nlms_kernel, resample_kernel)
+from passiveradar_torch.ops import graphs, nlms_kernel
 from passiveradar_torch.ops.caf import device_window, fast_xambg
-from passiveradar_torch.ops.clutter import ls_filter_multiple
-from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
+from passiveradar_torch.ops.clutter import ls_filter_multiple_graphed
 from passiveradar_torch.ops.fir import mix_resample_poly_batch
 from passiveradar_torch.ops.mixer import block_phase_offsets
 from passiveradar_torch.ops.util import deinterleave_batch
@@ -92,8 +93,8 @@ def _preprocess_impl(raw: torch.Tensor, phases: torch.Tensor,
     return resampled[:, :out_len]
 
 
-def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor, cfg: RadarConfig,
-                  stage_graph: bool = True) -> torch.Tensor:
+def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor,
+                  cfg: RadarConfig) -> torch.Tensor:
     """Clutter cancellation over a frame batch.
 
     cfg.clutter_method selects the canceller: 'ls_multiple' (the reference
@@ -103,9 +104,8 @@ def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor, cfg: RadarConfig,
     with the JAX Pallas kernel's guard: an all-zero window leaves the taps
     unchanged), or 'none'. Both NLMS methods run the whole batch in one
     launch of the NLMS kernel. On the card the LS stage is its own replayed
-    CUDA graph (ops/clutter_graph.py) when ``stage_graph``; a function that
-    is itself being captured passes False (a capture cannot start inside
-    another) and runs the eager stage, ``ops/clutter.ls_filter_multiple``.
+    CUDA graph (ops/clutter.ls_filter_multiple_graphed), except inside a
+    graph being built, which holds the eager stage's launches.
     """
     method = cfg.clutter_method
     if method == "none":
@@ -117,20 +117,19 @@ def _clutter_impl(ref: torch.Tensor, srv: torch.Tensor, cfg: RadarConfig,
             zero_window="nan" if method == "nlms" else "zero")
     if method != "ls_multiple":
         raise ValueError(f"unknown clutter_method {method!r}")
-    stage = ls_filter_multiple_graphed if stage_graph else ls_filter_multiple
-    return stage(ref, srv, cfg.num_range_cells, cfg.IF_sample_rate,
-                 cfg.clutter_doppler_bins, impl=cfg.clutter_impl,
-                 solver=cfg.clutter_solver)
+    return ls_filter_multiple_graphed(
+        ref, srv, cfg.num_range_cells, cfg.IF_sample_rate,
+        cfg.clutter_doppler_bins, impl=cfg.clutter_impl,
+        solver=cfg.clutter_solver)
 
 
 def _clean_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
-                phases: torch.Tensor, cfg: RadarConfig,
-                stage_graph: bool = True) -> tuple:
+                phases: torch.Tensor, cfg: RadarConfig) -> tuple:
     """Both channels' preprocess and the clutter stage: (ref, srv_clean),
     each (F, output_chunk_length) complex64."""
     ref = _preprocess_impl(raw_ref, phases, cfg)
     srv = _preprocess_impl(raw_srv, phases, cfg)
-    return ref, _clutter_impl(ref, srv, cfg, stage_graph)
+    return ref, _clutter_impl(ref, srv, cfg)
 
 
 def _caf_windowed(ref_ov: torch.Tensor, srv_ov: torch.Tensor,
@@ -165,77 +164,39 @@ def _halo_caf_impl(ref: torch.Tensor, srv_clean: torch.Tensor,
 
 
 def _process_frames_impl(raw_ref: torch.Tensor, raw_srv: torch.Tensor,
-                         phases: torch.Tensor, cfg: RadarConfig,
-                         stage_graph: bool = True) -> torch.Tensor:
-    """The eager chain of a batch (the LS stage its own graph on the card
-    when ``stage_graph``)."""
-    return _caf_batch_impl(*_clean_impl(raw_ref, raw_srv, phases, cfg,
-                                        stage_graph), cfg)
+                         phases: torch.Tensor,
+                         cfg: RadarConfig) -> torch.Tensor:
+    """The eager chain of a batch (the LS stage its own graph on the card,
+    outside a graph being built)."""
+    return _caf_batch_impl(*_clean_impl(raw_ref, raw_srv, phases, cfg), cfg)
 
 
 def _process_groups_impl(raw_refs: torch.Tensor, raw_srvs: torch.Tensor,
-                         phases: torch.Tensor, cfg: RadarConfig,
-                         stage_graph: bool = True) -> torch.Tensor:
-    return torch.stack([_process_frames_impl(r, s, p, cfg, stage_graph)
+                         phases: torch.Tensor,
+                         cfg: RadarConfig) -> torch.Tensor:
+    return torch.stack([_process_frames_impl(r, s, p, cfg)
                         for r, s, p in zip(raw_refs, raw_srvs, phases)])
 
 
 # ---- the entry points' CUDA graphs (ops/graphs.py) ---------------------------
-# kind → the eager function a graph of that kind captures; inside a capture
-# the LS stage runs eager (no nested capture)
+# kind → the eager function a graph of that kind captures
 _RUNS = dict(
     preprocess=_preprocess_impl,
     caf=_caf_batch_impl,
-    clean=functools.partial(_clean_impl, stage_graph=False),
-    frames=functools.partial(_process_frames_impl, stage_graph=False),
-    groups=functools.partial(_process_groups_impl, stage_graph=False),
+    clean=_clean_impl,
+    frames=_process_frames_impl,
+    groups=_process_groups_impl,
     halo_caf=_halo_caf_impl)
 
 
-def route() -> tuple:
-    """What the batch chain looks up at call time: the fused-FFT opt-in and
-    the entry functions of the resampler (B1), NLMS (B2), fused-FFT (B3) and
-    Levinson (L1) kernels. A stand-in swapped in for one (a variant build,
-    a reference route) gets its own graphs."""
-    return (fft_kernel.use_fused(), resample_kernel.mix_regroup_matmul,
-            nlms_kernel.nlms_filter_batch, fft_kernel.fft_fused,
-            levinson_kernel.levinson_first_col_kernel)
-
-
-def graph_key(kind: str, device, inputs, cfg: RadarConfig, *extra) -> tuple:
-    """The cache key of an entry point's graph: its kind, the card, the
-    config, each input's shape and dtype (int16 or float32 IQ pairs,
-    complex64, ...), ``extra`` (what else the function takes) and the
-    route. The inputs may lie anywhere: only their shapes and dtypes
-    count."""
-    return (kind, graphs.card(device), cfg,
-            tuple((tuple(x.shape), x.dtype) for x in inputs), extra, route())
-
-
-def _replayed(kind: str, run, inputs: tuple, cfg: RadarConfig, *extra,
-              device=None, fresh: bool = True):
-    """run(*inputs): a replayed CUDA graph on the card (ops/graphs.py), one
-    a ``graph_key``; the eager code on the CPU. ``run`` must capture:
-    ``_RUNS``' functions, or one that calls no graphed stage. With
-    ``device`` the inputs may be pinned host buffers (graphs.call)."""
-    dev = inputs[0].device if device is None else graphs.card(device)
-    if dev.type != "cuda":
-        return run(*inputs)
-    return graphs.call(kind, graph_key(kind, dev, inputs, cfg, *extra),
-                       inputs, run, device=dev, fresh=fresh, info=dict(
-                           entry=kind, shapes=[list(x.shape) for x in inputs],
-                           dtypes=[str(x.dtype) for x in inputs],
-                           clutter_method=cfg.clutter_method,
-                           clutter_impl=cfg.clutter_impl,
-                           clutter_solver=cfg.clutter_solver,
-                           caf_short_filt=cfg.caf_short_filt,
-                           fused_fft=fft_kernel.use_fused()))
-
-
 def _graphed(kind: str, inputs: tuple, cfg: RadarConfig, **kw):
-    """The entry point ``kind`` of ``_RUNS`` through ``_replayed``."""
-    return _replayed(kind, functools.partial(_RUNS[kind], cfg=cfg), inputs,
-                     cfg, **kw)
+    """The entry point ``kind`` of ``_RUNS`` through graphs.graphed, keyed
+    by the whole config."""
+    return graphs.graphed(
+        kind, functools.partial(_RUNS[kind], cfg=cfg), inputs, cfg, info=dict(
+            clutter_method=cfg.clutter_method, clutter_impl=cfg.clutter_impl,
+            clutter_solver=cfg.clutter_solver,
+            caf_short_filt=cfg.caf_short_filt), **kw)
 
 
 def preprocess_batch(raw, phases, cfg: RadarConfig, device=None):
@@ -249,7 +210,8 @@ def preprocess_batch(raw, phases, cfg: RadarConfig, device=None):
 def clutter_batch(ref, srv, cfg: RadarConfig, device=None) -> torch.Tensor:
     """Clutter-cancel one preprocessed frame batch on ``device`` (default
     CUDA): (F, output_chunk_length) complex64 ref and srv → cleaned srv.
-    The LS stage is a replayed CUDA graph there (ops/clutter_graph.py)."""
+    The LS stage is a replayed CUDA graph there
+    (ops/clutter.ls_filter_multiple_graphed)."""
     dev = resolve_device(device)
     return _clutter_impl(_to_device(ref, dev), _to_device(srv, dev), cfg)
 
@@ -284,8 +246,8 @@ def process_frames(raw_ref, raw_srv, phases, cfg: RadarConfig,
     (F, num_doppler_cells, num_range_cells+1) complex64 on ``device``.
 
     On the card the whole batch (both preprocesses, the clutter stage, the
-    halo and the CAF) is one replayed CUDA graph a key (``graph_key``), the
-    counterpart of the JAX package's one compiled program
+    halo and the CAF) is one replayed CUDA graph a key (graphs.graph_key),
+    the counterpart of the JAX package's one compiled program
     (``_process_frames_jit``); a key's first call runs the eager chain."""
     dev = resolve_device(device)
     return _graphed("frames", (_to_device(raw_ref, dev),
@@ -357,11 +319,9 @@ def capture_frame_count(reader, cfg: RadarConfig) -> int:
     return total
 
 
-def capture_batches(reader, writer, cfg: RadarConfig, bf: int,
-                    reuse: bool) -> tuple:
+def capture_batches(reader, writer, cfg: RadarConfig, bf: int) -> tuple:
     """(frames of the run, its batches: feed.plan_batches) for a run of
-    ``run_capture`` over ``reader`` into ``writer`` in batches of ``bf``;
-    ``reuse`` keeps each batch's left halo on the card.
+    ``run_capture`` over ``reader`` into ``writer`` in batches of ``bf``.
 
     The frame after the last one written is read as the right margin when
     the capture holds it; under strict_frame_parity the reference trims to
@@ -373,7 +333,7 @@ def capture_batches(reader, writer, cfg: RadarConfig, bf: int,
     margin_hi = bool(getattr(reader, "frame_margin_after", False)) or (
         total < reader.num_frames and not cfg.strict_frame_parity)
     return total, plan_batches(total, bf, getattr(writer, "frames_done", 0),
-                               margin_lo, margin_hi, reuse)
+                               margin_lo, margin_hi)
 
 
 def run_capture(reader, writer, cfg: RadarConfig,
@@ -396,11 +356,12 @@ def run_capture(reader, writer, cfg: RadarConfig,
     (parallel/mesh.FrameMesh) splits each batch over its devices
     (process_frames_shmap), the buffer rounded up to a multiple of its
     size; ``device`` is then ignored. On one card each batch is a replay
-    of the batch graph (process_frames), fed by a feed.CardFeed: each
-    frame is read and sent to the card once, a batch's left halo is the
-    previous batch's last two slots, copied on the card
-    (``feed.stage_info()`` counts what it sent and reused); under a mesh
-    and on the CPU the batch is assembled in host buffers.
+    of the batch graph (process_frames). Every batch is assembled by a
+    feed.CardFeed: each frame is read once, a batch's left halo is the
+    previous batch's last two slots, copied where the buffers lie (on the
+    card for one card; in host memory on the CPU and under a mesh, pinned
+    where the mesh holds a card); ``feed.stage_info()`` counts what it
+    sent and reused.
     ``dispatch_groups`` (>= 1) is taken for the JAX package's signature and
     ignored: a batch is already one graph launch, so a grouped dispatch
     would only delay the first batch's copy and write
@@ -420,11 +381,7 @@ def run_capture(reader, writer, cfg: RadarConfig,
             dev = resolve_device(device)
             devs = (dev,)
         pin = any(d.type == "cuda" for d in devs)
-        # on one card each frame crosses once: the halo stays on the card
-        # and the new frames stream through feed.CardFeed
-        streamed = mesh is None and pin
-        total, batches = capture_batches(reader, writer, cfg, bf,
-                                         reuse=streamed)
+        total, batches = capture_batches(reader, writer, cfg, bf)
         frame0 = int(getattr(reader, "frame_offset", 0))
 
         pair_mode = hasattr(reader, "read_pair_frames")
@@ -434,21 +391,19 @@ def run_capture(reader, writer, cfg: RadarConfig,
 
         tdt = torch.int16 if pdt == np.int16 else torch.float32
         map_shape = (buf_n, cfg.num_doppler_cells, cfg.num_range_cells + 1)
-        # two sets of host buffers, used in turn: set s is refilled two
-        # batches after its copies were queued, by when finish() has
-        # waited on them
+        # two sets of host buffers (and of the feed's), used in turn: set s
+        # is refilled two batches after its copies were queued, by when
+        # finish() has waited on them
         host = [dict(ph=torch.empty(buf_n, dtype=torch.float32,
                                     pin_memory=pin),
                      out=torch.empty(map_shape, dtype=torch.complex64,
                                      pin_memory=pin))
                 for _ in range(2)]
-        feed = CardFeed(buf_n, lc, tdt, dev) if streamed else None
-        if not streamed:
-            for h in host:
-                h.update(ref=torch.empty((buf_n, lc, 2), dtype=tdt,
-                                         pin_memory=pin),
-                         srv=torch.empty((buf_n, lc, 2), dtype=tdt,
-                                         pin_memory=pin))
+        # on one card the frames stream to the card; on the CPU and under
+        # a mesh the feed's buffers are host tensors
+        feed = CardFeed(buf_n, lc, tdt,
+                        dev if mesh is None else torch.device("cpu"),
+                        pin=pin and mesh is not None)
     done = getattr(writer, "frames_done", 0)
 
     def dispatch(inputs, bufs):
@@ -505,16 +460,7 @@ def run_capture(reader, writer, cfg: RadarConfig,
                     phases[:] = 0
                     phases[slot0:slot0 + held] = frame_phases(
                         cfg, list(range(frame0 + b.lo, frame0 + b.hi)))
-                    if streamed:
-                        staged = feed.stage(b, raws)
-                    else:
-                        staged = (bufs["ref"], bufs["srv"])
-                        for buf, raw in zip(staged, raws):
-                            buf = buf.numpy()
-                            buf[:slot0] = 0
-                            buf[slot0 + held:] = 0
-                            buf[slot0:slot0 + held] = raw if pair_mode \
-                                else raw.view(np.float32).reshape(held, lc, 2)
+                    staged = feed.stage(b, raws)
                 with span("capture.launch"):
                     maps, events = dispatch((*staged, bufs["ph"]), bufs)
                 if pending is not None:
@@ -523,8 +469,7 @@ def run_capture(reader, writer, cfg: RadarConfig,
         if pending is not None:
             finish(pending)
     finally:
-        if feed is not None:
-            feed.close()
+        feed.close()
     if progress:
         print()
     return total

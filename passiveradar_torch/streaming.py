@@ -26,11 +26,12 @@ from passiveradar_torch._device import resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.detect.trackers import init_tracks, \
     multitarget_step, to_host
+from passiveradar_torch.ops import graphs
 from passiveradar_torch.ops.caf import device_window, fast_xambg
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.util import to_host_complex
-from passiveradar_torch.pipeline import _clean_batch, _replayed, \
-    _to_device, frame_phases
+from passiveradar_torch.pipeline import _clean_batch, _to_device, \
+    frame_phases
 from passiveradar_torch.spans import span
 
 DETAILS = ("full", "summary")
@@ -161,12 +162,13 @@ class StreamingProcessor:
                 (cur[0][0, :h], cur[1][0, :h])
             # the CAF and the CFAR: one graph on the card; the tracker step
             # (its own kernel) stays outside
-            caf, cf = _replayed(
+            cfar_kernel = tuple(self.cfar_kernel)
+            caf, cf = graphs.graphed(
                 "stream_caf", functools.partial(
                     _caf_cfar, cfg=cfg, window=self._window,
-                    cfar_kernel=tuple(self.cfar_kernel)),
-                (left_r, ref_c[0], right_r, left_s, srv_c[0], right_s), cfg,
-                tuple(self.cfar_kernel))
+                    cfar_kernel=cfar_kernel),
+                (left_r, ref_c[0], right_r, left_s, srv_c[0], right_s),
+                (cfg, cfar_kernel))
             self._tracks = multitarget_step(self._tracks, cf, self._extent,
                                             self.n_tracks,
                                             cfg.candidate_budget)

@@ -37,7 +37,7 @@ from passiveradar_torch.ops.caf import device_window, fast_xambg, \
     resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
 from passiveradar_torch.ops.channelizer import channelize, channelize_pair
-from passiveradar_torch.ops.clutter_graph import ls_filter_multiple_graphed
+from passiveradar_torch.ops.clutter import ls_filter_multiple_graphed
 from passiveradar_torch.ops.util import as_complex, to_host_complex
 from passiveradar_torch.pipeline import _as_tensor
 from passiveradar_torch.spans import span
@@ -118,7 +118,7 @@ def channel_clean(refc: torch.Tensor, srvc: torch.Tensor,
     """The per-channel LS clutter canceller over a (B, cpi_samples) batch of
     channels (the JAX package's default impl and solver, whatever
     cfg.clutter_method says, as there); a replayed CUDA graph on the card
-    (ops/clutter_graph.py)."""
+    (ops/clutter.ls_filter_multiple_graphed)."""
     return ls_filter_multiple_graphed(refc, srvc, cfg.num_range_cells,
                                       cfg.IF_sample_rate,
                                       cfg.clutter_doppler_bins)

@@ -23,7 +23,8 @@ from passiveradar_torch.io.synthetic import (  # noqa: E402
 from passiveradar_torch.ops import fft_kernel as fk  # noqa: E402
 from passiveradar_torch.ops import nlms_kernel as nk  # noqa: E402
 from passiveradar_torch.ops import resample_kernel as rk  # noqa: E402
-from passiveradar_torch.ops.clutter import ls_filter_multiple  # noqa: E402
+from passiveradar_torch.ops.clutter import (  # noqa: E402
+    ls_filter_multiple, ls_filter_multiple_graphed)
 from passiveradar_torch.pipeline import frame_phases, process_frames  # noqa: E402
 from passiveradar_torch.streaming import StreamingProcessor  # noqa: E402
 
@@ -1174,7 +1175,7 @@ def test_graphed_stage_matches_eager(cuda, impl, solver):
     frame: the first call (warm-up, then capture) and two replays bit-equal
     to the eager stage; the Levinson kernel's counter counts each replay's
     launch."""
-    from passiveradar_torch.ops import clutter_graph as cg
+    from passiveradar_torch.ops import graphs
     from passiveradar_torch.ops import levinson_kernel as lk
     rng = np.random.default_rng(5)
     n, flen, fs = 4096, 16, 4096 / 0.9998442
@@ -1190,17 +1191,16 @@ def test_graphed_stage_matches_eager(cuda, impl, solver):
     want = ls_filter_multiple(r, s, flen, fs, bins, solver=solver,
                               impl=impl)
     per_call = 0 if solver == "cholesky" else 1
-    graphed = [cg.ls_filter_multiple_graphed(r, s, flen, fs, bins,
-                                             solver=solver, impl=impl)]
+    graphed = [ls_filter_multiple_graphed(r, s, flen, fs, bins,
+                                          solver=solver, impl=impl)]
     before = lk.levinson_first_col_kernel.launches
     for _ in range(2):
-        graphed.append(cg.ls_filter_multiple_graphed(r, s, flen, fs, bins,
-                                                     solver=solver,
-                                                     impl=impl))
+        graphed.append(ls_filter_multiple_graphed(r, s, flen, fs, bins,
+                                                  solver=solver, impl=impl))
     torch.cuda.synchronize()
     assert lk.levinson_first_col_kernel.launches == before + 2 * per_call
-    entry = cg._graphs[cuda.index][cg.graph_key(r, s, flen, fs, bins,
-                                                 solver, impl)]
+    entry = graphs.lookup(graphs.graph_key(
+        "clutter", (r, s), (flen, fs, bins, impl, solver)), cuda)
     assert entry.replays >= 2
     assert entry.launches.get("levinson_first_col", 0) == per_call
     for got in graphed:
@@ -1214,7 +1214,6 @@ def test_graphed_stage_replays_without_host_sync(cuda):
     2^16 samples) replays under torch.cuda.set_sync_debug_mode("error"),
     as the eager stage runs there once its tables are made; the replay
     equals the eager result."""
-    from passiveradar_torch.ops import clutter_graph as cg
     gen = torch.Generator(device=cuda).manual_seed(9)
     n = 65536
     ref = torch.randn((2, n), dtype=torch.complex64, generator=gen,
@@ -1222,13 +1221,13 @@ def test_graphed_stage_replays_without_host_sync(cuda):
     srv = 0.3 * torch.roll(ref, 7, dims=1) + 0.1 * torch.randn(
         (2, n), dtype=torch.complex64, generator=gen, device=cuda)
     args = (ref, srv, 175, float(n) / 1.0, (0, 1, -1, 2, -2))
-    cg.ls_filter_multiple_graphed(*args)              # warm-up and capture
+    ls_filter_multiple_graphed(*args)                 # warm-up and capture
     eager = ls_filter_multiple(*args)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = ls_filter_multiple(*args)
-        got = cg.ls_filter_multiple_graphed(*args)
+        got = ls_filter_multiple_graphed(*args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1278,11 +1277,10 @@ def _fused_env(monkeypatch, fused):
 def _assert_replays_equal_eager(cuda, kind, fn, eager, inputs, cfg):
     """fn() three times (warm-up and capture, then two replays), each
     bit-equal to ``eager``; the graph kept under its key replayed twice."""
-    from passiveradar_torch import pipeline as pl
     from passiveradar_torch.ops import graphs
     outs = [fn() for _ in range(3)]
     torch.cuda.synchronize()
-    entry = graphs.lookup(pl.graph_key(kind, cuda, inputs, cfg), cuda)
+    entry = graphs.lookup(graphs.graph_key(kind, inputs, cfg), cuda)
     assert entry is not None and entry.replays >= 2
     for out in outs:
         for got, want in zip(graphs._tensors(out), graphs._tensors(eager)):
@@ -1352,6 +1350,23 @@ def test_batch_graph_every_canceller_matches_eager(cuda, impl, solver):
     _assert_replays_equal_eager(
         cuda, "frames", lambda: pl.process_frames(ref, srv, ph, cfg), eager,
         (ref, srv, ph), cfg)
+
+
+@pytest.mark.cuda
+def test_batch_graph_keeps_no_clutter_graph(cuda, monkeypatch):
+    """A frames graph's first call reaches the graphed LS stage while the
+    graph is built (warm-up and capture): the stage runs eagerly there, so
+    the cache keeps the frames graph alone, which holds the Levinson
+    kernel's launch."""
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.ops import graphs
+    monkeypatch.setattr(graphs, "_graphs", {})
+    cfg, ref, srv, ph = _graph_batch(cuda, nfr=3)
+    pl.process_frames(ref, srv, ph, cfg)
+    torch.cuda.synchronize()
+    kept = graphs.cache_info()
+    assert [g["kind"] for g in kept] == ["frames"]
+    assert kept[0]["launches"].get("levinson_first_col") == 1
 
 
 @pytest.mark.cuda

@@ -1,13 +1,14 @@
 """The port's graph cache (ops/graphs.py) and its graphed entry points, on
 the CPU.
 
-* The batch graphs' key (pipeline.graph_key) tells apart every config
-  field, input dtype and shape, and every route that changes the launches.
+* The graphs' key (graphs.graph_key) tells apart every config field,
+  input dtype and shape, and, for the batch's and the LS stage's graphs,
+  every route and parameter that changes the launches.
 * The cache with the CUDA capture replaced by a stand-in: its LRU under one
   memory budget a device, the kernel launch counters at capture and at
   replay, static inputs and fresh outputs, and the entry points' graph
-  functions, which run the LS stage eager inside a capture (no nested
-  capture).
+  functions, whose graphed LS stage runs eagerly while their graph is
+  built (no nested capture).
 * Every graphed entry point on CPU tensors (where it runs the eager chain)
   bit-equal to the eager function, and against the JAX package at the
   port's pipeline bound (1e-4 of the peak, argmax equal:
@@ -30,8 +31,11 @@ from passiveradar_tpu.config import derive_config as j_derive  # noqa: E402
 from passiveradar_torch import pipeline as tp  # noqa: E402
 from passiveradar_torch import streaming as ts  # noqa: E402
 from passiveradar_torch.config import derive_config as t_derive  # noqa: E402
+from passiveradar_torch.detect import tracker_kernel as tk  # noqa: E402
+from passiveradar_torch.detect import trackers  # noqa: E402
 from passiveradar_torch.io.synthetic import (  # noqa: E402
     Target, synth_capture_arrays)
+from passiveradar_torch.ops import clutter as tc  # noqa: E402
 from passiveradar_torch.ops import fft_kernel as fk  # noqa: E402
 from passiveradar_torch.ops import graphs  # noqa: E402
 from passiveradar_torch.ops import levinson_kernel as lk  # noqa: E402
@@ -82,21 +86,21 @@ def test_batch_graph_key_tells_every_config_field_apart():
     cfg = t_derive(TINY)
     ref, srv, ph = _frames(cfg, 2)
     inputs = (ref, srv, ph)
-    base = tp.graph_key("frames", "cpu", inputs, cfg)
-    assert tp.graph_key("frames", "cpu", inputs, cfg) == base
+    base = graphs.graph_key("frames", inputs, cfg)
+    assert graphs.graph_key("frames", inputs, cfg, "cpu") == base
     hash(base)
     keys = [base]
     for f in dataclasses.fields(cfg):
         other = dataclasses.replace(cfg, **{f.name: _other(getattr(cfg,
                                                                     f.name))})
-        keys.append(tp.graph_key("frames", "cpu", inputs, other))
+        keys.append(graphs.graph_key("frames", inputs, other))
     assert len(set(keys)) == len(keys)
 
 
 def test_batch_graph_key_tells_inputs_and_kinds_apart():
     """The key changes with each input's dtype (int16 and float32 IQ pairs,
     complex64) and shape, with the kind and with what else the function
-    takes (``extra``)."""
+    takes (``params`` beyond the config)."""
     cfg = t_derive(TINY)
     ref, srv, ph = _frames(cfg, 2, pairs=True)
     base = (ref, srv, ph)
@@ -107,35 +111,70 @@ def test_batch_graph_key_tells_inputs_and_kinds_apart():
         (ref[:1], srv[:1], ph[:1]),
         (ref, srv, ph.double()),
     ]
-    keys = [tp.graph_key("frames", "cpu", v, cfg) for v in variants]
-    keys += [tp.graph_key("groups", "cpu", base, cfg),
-             tp.graph_key("frames", "cpu", base, cfg, (18, 4)),
-             tp.graph_key("frames", "cpu", base, cfg, (18, 5))]
+    keys = [graphs.graph_key("frames", v, cfg) for v in variants]
+    keys += [graphs.graph_key("groups", base, cfg),
+             graphs.graph_key("frames", base, (cfg, (18, 4))),
+             graphs.graph_key("frames", base, (cfg, (18, 5)))]
     assert len(set(keys)) == len(keys)
 
 
-def test_batch_graph_key_follows_every_route(monkeypatch):
-    """As the clutter graph's key (tests/test_torch_levinson.py): the key
-    changes with the fused-FFT opt-in and with the entry function of each
-    kernel on the batch's path, B1, B2, B3 and L1, as chip_smoke.py's
-    variant builds and reference routes swap them; undone, it is the same
-    key again."""
-    cfg = t_derive(TINY)
-    inputs = _frames(cfg, 2)
+def _ls_params(ref, srv, filter_len=12, bins=(0, 1, -1, 2, -2),
+               impl="carry", solver="levinson"):
+    """The params that ops/clutter.ls_filter_multiple_graphed keys its
+    graph by (graphs.graphed replaced by one that returns them)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "graphed", lambda kind, run, inputs, params,
+                   **kw: params)
+        return tc.ls_filter_multiple_graphed(ref, srv, filter_len, 2048.0,
+                                             bins, solver=solver, impl=impl)
+
+
+def _route_cases(kind):
+    """(inputs, params, [(inputs, params) of calls that must key apart])
+    of a ``frames`` or a ``clutter`` graph."""
+    if kind == "frames":
+        cfg = t_derive(TINY)
+        inputs = _frames(cfg, 2)
+        return inputs, cfg, [(tuple(x[:1] for x in inputs), cfg)]
+    rng = np.random.default_rng(19)
+    ref, srv = (torch.from_numpy((rng.standard_normal((2, 2048))
+                                  + 1j * rng.standard_normal((2, 2048)))
+                                 .astype(np.complex64)) for _ in range(2))
+    return (ref, srv), _ls_params(ref, srv), [
+        ((ref[:1], srv[:1]), _ls_params(ref[:1], srv[:1])),
+        ((ref, srv), _ls_params(ref, srv, solver="cholesky")),
+        ((ref, srv), _ls_params(ref, srv, impl="segment")),
+        ((ref, srv), _ls_params(ref, srv, filter_len=13)),
+        ((ref, srv), _ls_params(ref, srv, bins=(0, 1, -1)))]
+
+
+@pytest.mark.parametrize("kind", ["frames", "clutter"])
+def test_graph_key_follows_every_route(monkeypatch, kind):
+    """The batch graph's and the LS stage's key change with the fused-FFT
+    opt-in and with the entry function of each kernel (B1, B2, B3, T1, L1),
+    as chip_smoke.py's variant builds, float64 contexts and reference
+    routes swap them; undone, it is the same key again. The LS stage's key
+    also changes with shapes, solver, impl, filter length and bins."""
+    inputs, params, others = _route_cases(kind)
     monkeypatch.delenv("PASSIVERADAR_PALLAS_FFT", raising=False)
-    base = tp.graph_key("frames", "cpu", inputs, cfg)
+    base = graphs.graph_key(kind, inputs, params)
+    assert graphs.graph_key(kind, inputs, params) == base
+    hash(base)
     keys = [base]
     monkeypatch.setenv("PASSIVERADAR_PALLAS_FFT", "1")
-    keys.append(tp.graph_key("frames", "cpu", inputs, cfg))
+    keys.append(graphs.graph_key(kind, inputs, params))
     swaps = ((rk, "mix_regroup_matmul", rk.mix_regroup_matmul_plain),
              (nk, "nlms_filter_batch", nk.nlms_filter_batch_plain),
              (fk, "fft_fused", fk.fft_fused_reference),
+             (fk, "fft_fused", lambda x, inverse=False: x),
+             (tk, "multitarget_step_kernel", trackers.multitarget_step_plain),
              (lk, "levinson_first_col_kernel", lk.levinson_first_col_plain))
     for module, name, stand_in in swaps:
         monkeypatch.setattr(module, name, stand_in)
-        keys.append(tp.graph_key("frames", "cpu", inputs, cfg))
+        keys.append(graphs.graph_key(kind, inputs, params))
     monkeypatch.undo()
-    assert tp.graph_key("frames", "cpu", inputs, cfg) == base
+    assert graphs.graph_key(kind, inputs, params) == base
+    keys += [graphs.graph_key(kind, x, p) for x, p in others]
     assert len(set(keys)) == len(keys)
 
 
@@ -248,9 +287,10 @@ def test_cache_copies_inputs_and_returns_fresh_outputs(stand_in):
 @pytest.mark.parametrize("kind", sorted(tp._RUNS))
 def test_entry_graphs_capture_the_eager_stage(stand_in, monkeypatch, kind):
     """Each entry point's graph function, captured and replayed through the
-    cache (stand-in capture), gives the eager function's maps bit for bit,
-    and never reaches the LS stage's own graph (a capture cannot start
-    inside another)."""
+    cache (stand-in capture), gives the eager function's maps bit for bit;
+    the graphed LS stage that it reaches while its graph is built (warm-up
+    and capture) runs eagerly, and no graph but the entry point's is kept
+    (a capture cannot start inside another)."""
     cfg = t_derive(TINY)
     ref, srv, ph = _frames(cfg, 4, pairs=True)
     r_if = tp._preprocess_impl(ref, ph, cfg)
@@ -266,14 +306,21 @@ def test_entry_graphs_capture_the_eager_stage(stand_in, monkeypatch, kind):
         halo_caf=(r_if, clean, edge, r_if[1:2, :h], edge,
                   clean[1:2, :h]))[kind]
     eager = functools.partial(tp._RUNS[kind], cfg=cfg)(*inputs)
+    nested, graphed = [], graphs.graphed
 
-    def nested(*a, **k):
-        raise AssertionError("a graphed LS stage inside a capture")
+    def spy(kind_, run_, inputs_, params_, **kw):
+        nested.append((kind_, graphs._building))
+        return graphed(kind_, run_, inputs_, params_, **kw)
 
-    monkeypatch.setattr(tp, "ls_filter_multiple_graphed", nested)
+    monkeypatch.setattr(graphs, "graphed", spy)
     run = functools.partial(tp._RUNS[kind], cfg=cfg)
-    outs = [graphs.call(kind, kind, inputs, run) for _ in range(3)]
+    outs = [graphs.call(kind, kind, inputs, run)]
+    building = list(nested)
+    outs += [graphs.call(kind, kind, inputs, run) for _ in range(2)]
     assert len(stand_in["captured"]) == 1
+    assert [g["kind"] for g in graphs.cache_info()] == [kind]
+    assert bool(building) == (kind in ("clean", "frames", "groups"))
+    assert all(k == "clutter" and depth == 1 for k, depth in building)
     for out in outs:
         for got, want in zip(graphs._tensors(out), graphs._tensors(eager)):
             assert torch.equal(_bits(got), _bits(want))

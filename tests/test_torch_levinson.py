@@ -12,8 +12,8 @@
 * the wrapper's refusals, made before any library load;
 * the constant tables of the LS stage, now made once per device and
   shape, bit-equal to the per-call tables they replace;
-* ``ops/clutter_graph`` on CPU tensors, bit-equal to the eager stage, and
-  its cache key, which must change with the FFT and Levinson routes;
+* ``ops/clutter.ls_filter_multiple_graphed`` on CPU tensors, bit-equal to
+  the eager stage (its key: tests/test_torch_graphs.py);
 * the LS stage as the pipeline calls it against the JAX package's.
 
 JAX is imported inside the tests that compare with it, so that the file
@@ -27,8 +27,7 @@ import torch
 torch.set_num_threads(1)
 
 from passiveradar_torch.ops import clutter as tc  # noqa: E402
-from passiveradar_torch.ops import clutter_graph as cg  # noqa: E402
-from passiveradar_torch.ops import fft_kernel as fk  # noqa: E402
+from passiveradar_torch.ops import graphs  # noqa: E402
 from passiveradar_torch.ops import levinson_kernel as lk  # noqa: E402
 from passiveradar_torch.ops import mixer as tmixer  # noqa: E402
 
@@ -327,40 +326,11 @@ def test_graphed_stage_on_cpu_is_the_eager_stage(impl, solver):
     fs = 2048 / 0.9998442
     want = tc.ls_filter_multiple(ref, srv, 12, fs, BINS, solver=solver,
                                  impl=impl)
-    got = cg.ls_filter_multiple_graphed(ref, srv, 12, fs, BINS,
+    got = tc.ls_filter_multiple_graphed(ref, srv, 12, fs, BINS,
                                         solver=solver, impl=impl)
     assert torch.equal(got, want)
     assert torch.all(got[1] == 0)
-    assert cg.cache_info() == []
-
-
-def test_graph_key_follows_every_route(monkeypatch):
-    """The key changes with the fused-FFT opt-in, with the fused FFT's and
-    the Levinson kernel's entry functions (as chip_smoke.py's float64
-    contexts swap them), and with shapes, impl and solver; it is equal for
-    an equal call."""
-    ref, srv = _frames(np.random.default_rng(19))
-    args = (ref, srv, 12, 2048.0, BINS)
-    monkeypatch.delenv("PASSIVERADAR_PALLAS_FFT", raising=False)
-    base = cg.graph_key(*args)
-    assert cg.graph_key(*args) == base
-    hash(base)
-    keys = [base]
-    monkeypatch.setenv("PASSIVERADAR_PALLAS_FFT", "1")
-    keys.append(cg.graph_key(*args))
-    monkeypatch.setattr(fk, "fft_fused", lambda x, inverse=False: x)
-    keys.append(cg.graph_key(*args))
-    monkeypatch.setattr(lk, "levinson_first_col_kernel",
-                        lk.levinson_first_col_plain)
-    keys.append(cg.graph_key(*args))
-    monkeypatch.undo()
-    assert cg.graph_key(*args) == base
-    keys += [cg.graph_key(ref[:1], srv[:1], 12, 2048.0, BINS),
-             cg.graph_key(*args, solver="cholesky"),
-             cg.graph_key(*args, impl="segment"),
-             cg.graph_key(ref, srv, 13, 2048.0, BINS),
-             cg.graph_key(ref, srv, 12, 2048.0, (0, 1, -1))]
-    assert len(set(keys)) == len(keys)
+    assert graphs.cache_info() == []
 
 
 def test_clutter_stage_as_the_pipeline_calls_it_matches_jax():

@@ -256,6 +256,54 @@ def test_run_capture_on_a_mesh_matches_single_device(capture7, monkeypatch):
     _argmax_equal(np.moveaxis(got, 2, 0), np.moveaxis(want, 2, 0))
 
 
+@pytest.fixture(scope="module")
+def jax_stack7(capture7):
+    """The JAX package's run_capture over capture7 in batches of 3."""
+    d, params, _, _ = capture7
+    cfg_j = j_derive(params)
+    jr = JReader(cfg_j, params["input_file"], estimate_offset=False)
+    jw = JWriter(cfg_j, 7, str(d / "feed_j.hdf5"))
+    jpl.run_capture(jr, jw, cfg_j, batch_frames=3, progress=False)
+    jw.close()
+    jr.close()
+    return _xambg(str(d / "feed_j.hdf5"))
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_run_capture_stages_through_the_feed(capture7, jax_stack7, shards):
+    """run_capture on one CPU device and on cpu_mesh(2) assembles every
+    batch through feed.CardFeed on host tensors: three batches of 3, each
+    frame read from the capture once, two halo slots a channel reused at
+    each batch after the first; the maps agree with the JAX package's
+    run_capture at the pipeline bound (1e-4 of the peak, argmax equal)."""
+    from passiveradar_torch import feed
+    d, _, cfg, _ = capture7
+    reader = CaptureReader(cfg, estimate_offset=False, device="cpu")
+    read, plain = [], reader.read_pair_frames
+
+    def counted(start, count):
+        read.extend(range(start, start + count))
+        return plain(start, count)
+
+    reader.read_pair_frames = counted
+    w = MapWriter(cfg, 7, str(d / f"feed_{shards}.hdf5"))
+    before = feed.stage_info()
+    kw = dict(device="cpu") if shards is None else dict(
+        mesh=cpu_mesh(shards))
+    assert tp.run_capture(reader, w, cfg, batch_frames=3, progress=False,
+                          **kw) == 7
+    w.close()
+    reader.close()
+    delta = {k: v - before[k] for k, v in feed.stage_info().items()}
+    assert sorted(read) == list(range(7))
+    assert (delta["calls"], delta["batches"]) == (1, 3)
+    assert delta["frames_sent"] == 2 * 7
+    assert delta["frames_reused"] == 2 * 2 * (3 - 1)
+    got = _xambg(str(d / f"feed_{shards}.hdf5"))
+    assert _peak_rel(got, jax_stack7) < 1e-4
+    _argmax_equal(np.moveaxis(got, 2, 0), np.moveaxis(jax_stack7, 2, 0))
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_fast_xambg_tp_matches_single_device(n):
     """The tensor-parallel CAF on n CPU shards: lag blocks that concatenate

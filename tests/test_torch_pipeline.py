@@ -408,7 +408,7 @@ def test_feed_plan_assembles_the_buffers_as_before(monkeypatch, bf, total):
                              after=bool(after))
         writer = SimpleNamespace(frames_done=done)
         want = _buffers_before(reader, cfg, bf, done)
-        n, batches = tp.capture_batches(reader, writer, cfg, bf, reuse=True)
+        n, batches = tp.capture_batches(reader, writer, cfg, bf)
         assert n == total
         assert [(b.start, b.count) for b in batches] == \
             [w[:2] for w in want]
@@ -477,7 +477,7 @@ def test_chunk_stager_lands_the_bytes(monkeypatch, dtype, chunk_bytes,
                                                       "read_only"))
     tdt = torch.int16 if dtype == "int16" else torch.float32
     fb = lc * 2 * (2 if dtype == "int16" else 4)
-    batches = feed.plan_batches(total, bf, 0, False, True, reuse=True)
+    batches = feed.plan_batches(total, bf, 0, False, True)
     counted = feed.stage_info()
     card = feed.CardFeed(bf + 2, lc, tdt, torch.device("cpu"))
     chunks = 0
@@ -513,7 +513,7 @@ def test_chunk_stager_refuses_a_source_of_the_wrong_size(monkeypatch):
     lc, bf = 5, 3
     x = _frames_of("int16", 4, lc, 0)
     card = feed.CardFeed(bf + 2, lc, torch.int16, torch.device("cpu"))
-    b = feed.plan_batches(3, bf, 0, False, True, reuse=True)[0]
+    b = feed.plan_batches(3, bf, 0, False, True)[0]
     with pytest.raises(ValueError, match="expected 4 frames"):
         card.stage(b, (x[:3], x[:3]))
     card.close()
