@@ -1,11 +1,13 @@
-"""The batch feed of ``pipeline.run_capture``: host → card on one card,
-host → host on the CPU and under a mesh.
+"""The batch feed of the host loops (``pipeline.run_capture``,
+``wideband.run_wideband_capture``): host → card on one card, host → host
+on the CPU and under a mesh.
 
 A batch is one (bf + 2)-slot buffer a channel: slot s holds capture frame
 start − 1 + s, so slots 1..count are the frames written and slots 0 and
 count + 1 their CPI-overlap halo. ``plan_batches`` says which capture
 frames [lo, hi) each buffer holds; every other slot is zero (the capture's
-edges, past its end).
+edges, past its end). Wideband CPIs do not overlap: their batches hold
+only frames [start, start + count), with no halo and nothing reused.
 
 Each frame is read from the reader once:
 
@@ -52,7 +54,7 @@ _totals: collections.Counter = collections.Counter()
 
 def stage_info() -> dict:
     """The counters of every feed since the process started: ``calls``
-    (one a ``run_capture`` call), ``batches``, ``frames_sent`` (from the
+    (one a host loop's call), ``batches``, ``frames_sent`` (from the
     reader's frames), ``frames_reused`` (halo slots copied from the other
     set: 2 a batch after a call's first), ``frames_zeroed`` (slots set to
     zero),
@@ -177,7 +179,7 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 class CardFeed:
-    """The two channels' staging buffers of ``run_capture`` on ``device``:
+    """The two channels' staging buffers of a host loop on ``device``:
     two sets of (slots, lc, 2) ``dtype`` buffers, used in turn, fed by a
     ``ChunkStager``; host buffers are pinned with ``pin`` (a mesh that
     copies them to its cards). ``stage`` fills one set for a batch and

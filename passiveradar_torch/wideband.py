@@ -33,6 +33,7 @@ from passiveradar_torch._device import on_device, resolve_device
 from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.detect.trackers import _slot, init_tracks, \
     multitarget_step, to_host
+from passiveradar_torch.feed import Batch, CardFeed
 from passiveradar_torch.ops.caf import device_window, fast_xambg, \
     resolve_window
 from passiveradar_torch.ops.cfar import cfar_2d
@@ -226,7 +227,10 @@ def run_wideband_capture(reader, cfg: RadarConfig,
 
     ``writers``: {channel_index: MapWriter-like} (default: one MapWriter per
     selected channel at channel_path(cfg, k)). Every batch has one fixed
-    shape (a zero-padded final batch). ``integrate``: also write the
+    shape (a zero-padded final batch) and is assembled by a feed.CardFeed:
+    each CPI is read once and, on one card, sent once, in chunks through
+    pinned slots on a copy stream; on the CPU and under a mesh the feed's
+    buffers are host tensors. ``integrate``: also write the
     noncoherently integrated multi-illuminator stack (integrate_channels,
     summed on the device before the copy to the host) to
     integrated_path(cfg), in the same /xambg file contract. ``mesh``
@@ -249,23 +253,26 @@ def run_wideband_capture(reader, cfg: RadarConfig,
         int_writer = MapWriter(cfg, total, integrated_path(cfg)) \
             if integrate else None
 
-        batches = [(s, min(bf, total - s)) for s in range(0, total, bf)]
-        prefetch = PrefetchReader(reader, batches, mode="iq")
-        lc = cfg.input_chunk_length // 2
-        buf_ref = np.zeros((bf, lc), np.complex64)
-        buf_srv = np.zeros((bf, lc), np.complex64)
+        # wideband CPIs do not overlap: a batch's buffer holds its own CPIs
+        # in slots 1..count, and the feed zeroes every other slot
+        batches = [Batch(s, min(bf, total - s), s, min(s + bf, total))
+                   for s in range(0, total, bf)]
+        prefetch = PrefetchReader(reader, [b.read for b in batches],
+                                  mode="iq")
+        # on one card the CPIs stream to the card; on the CPU and under a
+        # mesh the feed's buffers are host tensors
+        feed = CardFeed(bf + 2, cfg.input_chunk_length // 2, torch.float32,
+                        dev if mesh is None else torch.device("cpu"))
     done = 0
     reads = iter(prefetch)
     try:
-        for _ in batches:
+        for batch in batches:
             with span("capture.batch"):
                 with span("capture.read"):
-                    start, count, (ref_raw, srv_raw) = next(reads)
+                    start, count, raws = next(reads)
                 with span("capture.stage"):
-                    buf_ref[:count] = ref_raw
-                    buf_srv[:count] = srv_raw
-                    buf_ref[count:] = 0
-                    buf_srv[count:] = 0
+                    buf_ref, buf_srv = (x[1:bf + 1]
+                                        for x in feed.stage(batch, raws))
                 with span("capture.launch"):
                     blocks = [wideband_frames(buf_ref, buf_srv, cfg,
                                               device=dev)] \
@@ -273,6 +280,7 @@ def run_wideband_capture(reader, cfg: RadarConfig,
                         wideband_frames_shmap(buf_ref, buf_srv, cfg, mesh)
                     if int_writer is not None:
                         parts = [b[:count].abs().sum(dim=1) for b in blocks]
+                    feed.consumed()
                 with span("capture.wait"):
                     # (count, S, nf, R+1), the shards' channel blocks in
                     # order
@@ -290,6 +298,7 @@ def run_wideband_capture(reader, cfg: RadarConfig,
                         print(f"\r  processed {done}/{total} wideband CPIs",
                               end="", flush=True)
     finally:
+        feed.close()
         if own_writers:
             for w in writers.values():
                 w.close()

@@ -1433,6 +1433,9 @@ class _MemWriter:
     def write(self, frames, start):
         self.maps[start:start + len(frames)] = frames
 
+    def close(self):
+        pass
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int16", "float32"])
@@ -1474,6 +1477,66 @@ class _MemIQReader:
 
     def read_iq_frames(self, start, count):
         return self.ref[start:start + count], self.srv[start:start + count]
+
+
+@pytest.mark.cuda
+def test_run_wideband_capture_feed_maps_equal_the_eager_chain(cuda,
+                                                              monkeypatch):
+    """run_wideband_capture(integrate=True) on the card, 11 CPIs in batches
+    of 4 (a short last batch), each CPI streamed through the feed's two
+    pinned slots in chunks smaller than a CPI (so slots are refilled within
+    a batch): each channel's maps and the integrated stack bit for bit as
+    the eager wideband_frames gives them on the zero-padded numpy batches;
+    the bytes and chunks sent are the plan's."""
+    from passiveradar_torch import feed
+    from passiveradar_torch.io import writers as tw
+    from passiveradar_torch.wideband import run_wideband_capture, \
+        wideband_frames
+    chunk = (48 << 10) + 8
+    monkeypatch.setattr(feed, "CHUNK_BYTES", chunk)
+    total, bf = 11, 4
+    cfg = derive_config(dict(
+        input_sample_rate=65536, input_center_freq=0, channel_freq=0,
+        channel_bandwidth=65536, cpi_seconds_nominal=0.25,
+        max_doppler_nominal=128.0, max_range_nominal=600.0,
+        wideband_channels=4, wideband_channel_select=(1, 2),
+        num_frames=total))
+    n = cfg.cpi_samples * cfg.wideband_channels
+    rng = np.random.default_rng(11)
+    raw = [rng.standard_normal((total, n, 2)).astype(np.float32)
+           for _ in range(2)]
+    shape = (total, cfg.num_doppler_cells, cfg.num_range_cells + 1)
+    stacks = {k: _MemWriter(shape) for k in cfg.wideband_channel_select}
+    made = []
+
+    def mem_writer(*args, **kwargs):
+        made.append(_MemWriter(shape))
+        return made[-1]
+
+    monkeypatch.setattr(tw, "MapWriter", mem_writer)
+    counted = feed.stage_info()
+    assert run_wideband_capture(
+        _MemIQReader(*raw), cfg, batch_frames=bf, writers=stacks,
+        progress=False, integrate=True, device=cuda) == total
+    stats = {k: v - counted[k] for k, v in feed.stage_info().items()}
+    counts = [min(bf, total - s) for s in range(0, total, bf)]
+    cpi = n * 8
+    assert stats["batches"] == len(counts)
+    assert stats["frames_sent"] == 2 * total
+    assert stats["bytes_sent"] == 2 * total * cpi
+    assert stats["chunks"] == 2 * sum(-(-c * cpi // chunk) for c in counts)
+    (integ,) = made
+    for s, c in zip(range(0, total, bf), counts):
+        bufs = [np.zeros((bf, n), np.complex64) for _ in range(2)]
+        for buf, x in zip(bufs, raw):
+            buf[:c] = x[s:s + c].view(np.complex64)[..., 0]
+        want = wideband_frames(*bufs, cfg, device=cuda)[:c]
+        for i, k in enumerate(cfg.wideband_channel_select):
+            np.testing.assert_array_equal(stacks[k].maps[s:s + c],
+                                          want[:, i].cpu().numpy())
+        np.testing.assert_array_equal(
+            integ.maps[s:s + c],
+            want.abs().sum(dim=1).cpu().numpy().astype(np.complex64))
 
 
 def _frames_graphs():

@@ -291,3 +291,82 @@ def test_wideband_streaming_needs_a_wideband_config(tmp_path):
         twb.WidebandStreamingProcessor(narrow, device="cpu")
     with pytest.raises(ValueError, match="detail"):
         twb.WidebandStreamingProcessor(cfg_t, detail="maps", device="cpu")
+
+
+class _IQFrames:
+    """A wideband capture in memory, read as complex64 CPIs (the
+    CaptureReader's read_iq_frames)."""
+
+    def __init__(self, ref, srv):
+        self.ref, self.srv = ref, srv
+        self.num_frames = ref.shape[0]
+
+    def read_iq_frames(self, start, count):
+        return self.ref[start:start + count], self.srv[start:start + count]
+
+
+class _MemStack:
+    """A MapWriter in memory: (frames, nf, R+1) complex64."""
+
+    def __init__(self, cfg, total, path=None):
+        self.maps = np.zeros((total, cfg.num_doppler_cells,
+                              cfg.num_range_cells + 1), np.complex64)
+
+    def write(self, frames, start):
+        self.maps[start:start + len(frames)] = frames
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("chunk", [None, 3 * 4096 + 5])
+def test_run_wideband_capture_feed_is_bit_equal_to_numpy_batches(
+        tmp_path, monkeypatch, chunk):
+    """run_wideband_capture(integrate=True) over 11 CPIs in batches of 4
+    (a short last batch), every batch through feed.CardFeed on the CPU:
+    each channel's maps and the integrated stack bit for bit as
+    wideband_frames gives them on zero-padded numpy batches; each CPI is
+    sent once, in chunks smaller than a CPI where CHUNK_BYTES says so, and
+    the slots outside a batch's CPIs are zeroed."""
+    from passiveradar_torch import feed
+    from passiveradar_torch.io import writers as tw
+    if chunk is not None:
+        monkeypatch.setattr(feed, "CHUNK_BYTES", chunk)
+    made = []
+
+    def mem_stack(*args, **kwargs):
+        made.append(_MemStack(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(tw, "MapWriter", mem_stack)
+    total, bf = 11, 4
+    _, cfg_j, cfg = _cfgs(tmp_path, num_frames=total)
+    n = cfg.cpi_samples * cfg.wideband_channels
+    ref, srv = (x.reshape(total, n) for x in _wb_signals(
+        cfg_j, total, np.random.default_rng(7)))
+    stacks = {k: _MemStack(cfg, total) for k in cfg.wideband_channel_select}
+    counted = feed.stage_info()
+    assert twb.run_wideband_capture(
+        _IQFrames(ref, srv), cfg, batch_frames=bf, writers=stacks,
+        progress=False, integrate=True, device="cpu") == total
+    stats = {k: v - counted[k] for k, v in feed.stage_info().items()}
+    counts = [min(bf, total - s) for s in range(0, total, bf)]
+    assert stats == dict(
+        calls=1, batches=3, frames_sent=2 * total, frames_reused=0,
+        frames_zeroed=2 * sum(bf + 2 - c for c in counts),
+        bytes_sent=2 * total * ref[0].nbytes,
+        chunks=2 * sum(-(-c * ref[0].nbytes // feed.CHUNK_BYTES)
+                       for c in counts),
+        slot_waits=0)
+    (integ,) = made
+    for s, c in zip(range(0, total, bf), counts):
+        bufs = [np.zeros((bf, n), np.complex64) for _ in range(2)]
+        for buf, x in zip(bufs, (ref, srv)):
+            buf[:c] = x[s:s + c]
+        want = twb.wideband_frames(*bufs, cfg, device="cpu")[:c]
+        for i, k in enumerate(cfg.wideband_channel_select):
+            np.testing.assert_array_equal(stacks[k].maps[s:s + c],
+                                          want[:, i].numpy())
+        np.testing.assert_array_equal(
+            integ.maps[s:s + c],
+            want.abs().sum(dim=1).numpy().astype(np.complex64))
