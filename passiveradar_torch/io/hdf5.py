@@ -16,13 +16,19 @@ when installed, else io/hdf5_min.py, which serves a contiguous dataset by
 os.pread), or a zarr v2 directory store holding the same dataset paths as
 arrays (``io/synthetic.write_synth_capture`` writes either, by the path's
 ``.zarr`` suffix).
+
+The offset search runs inside the span ``capture.align`` (spans.py).
+``read_info()`` gives what every prefetch reader's thread has read since
+the process started, as ``feed.stage_info()`` gives the feeds.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import queue
 import threading
+import time
 
 import numpy as np
 
@@ -31,6 +37,24 @@ from passiveradar_torch.config import RadarConfig
 from passiveradar_torch.io.native import demux2, i16_to_f32
 from passiveradar_torch.io.writers import hdf5_backend, zarr_backend
 from passiveradar_torch.ops.xcorr import find_channel_offset
+from passiveradar_torch.spans import span
+
+_totals: collections.Counter = collections.Counter()
+_totals_lock = threading.Lock()
+
+
+def read_info() -> dict:
+    """What every PrefetchReader's thread did since the process started:
+    ``batches`` and ``bytes`` read, ``read_s`` (seconds inside the
+    reader's read) and ``put_wait_s`` (seconds blocked on a full queue)."""
+    with _totals_lock:
+        return {k: _totals[k]
+                for k in ("batches", "bytes", "read_s", "put_wait_s")}
+
+
+def _count(**counts) -> None:
+    with _totals_lock:
+        _totals.update(counts)
 
 
 class CaptureReader:
@@ -71,7 +95,8 @@ class CaptureReader:
                              and self.int16_scale == cfg.int16_scale)
         self.offset = 0
         if estimate_offset:
-            self.offset = self._estimate_offset(max_offset_lags)
+            with span("capture.align"):
+                self.offset = self._estimate_offset(max_offset_lags)
         self._apply_offset()
 
     def _to_f32(self, raw: np.ndarray) -> np.ndarray:
@@ -189,7 +214,11 @@ class CaptureReader:
 
 
 class PrefetchReader:
-    """Wraps a CaptureReader with a one-batch-ahead background thread."""
+    """Wraps a CaptureReader with a one-batch-ahead background thread.
+
+    ``close()`` stops the thread (the caller's loop ended early or failed):
+    no read starts after it, and the queue is drained so that a thread
+    blocked on a full queue returns."""
 
     def __init__(self, reader: CaptureReader, batches, mode: str = "pair"):
         self.reader = reader
@@ -198,13 +227,22 @@ class PrefetchReader:
         self._batches = list(batches)
         self._read = getattr(reader, {"iq": "read_iq_frames",
                                       "pair": "read_pair_frames"}[mode])
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
     def _work(self):
         try:
             for start, count in self._batches:
-                self._q.put((start, count, self._read(start, count)))
+                if self._stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                arrays = self._read(start, count)
+                t1 = time.perf_counter()
+                _count(batches=1, bytes=sum(a.nbytes for a in arrays),
+                       read_s=t1 - t0)
+                self._q.put((start, count, arrays))
+                _count(put_wait_s=time.perf_counter() - t1)
             self._q.put(None)
         except BaseException as e:  # hand the failure to the consumer
             self._q.put(e)
@@ -217,3 +255,19 @@ class PrefetchReader:
             if isinstance(item, BaseException):
                 raise item
             yield item
+
+    def _drain(self) -> None:
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+
+    def close(self) -> None:
+        """Stop the thread and join it; what it read is dropped. After one
+        drain the thread makes at most two more puts (a batch, then the end
+        or its failure), which the queue of two holds."""
+        self._stop.set()
+        self._drain()
+        self._thread.join()
+        self._drain()

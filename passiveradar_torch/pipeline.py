@@ -469,6 +469,7 @@ def run_capture(reader, writer, cfg: RadarConfig,
         if pending is not None:
             finish(pending)
     finally:
+        prefetch.close()
         feed.close()
     if progress:
         print()

@@ -11,9 +11,20 @@ trace (``cli.process --profile``, ``cli.stream --profile``, or any
 
 A span is recorded on the thread that enters it, and only on the thread
 that started the profiler: the prefetch reader's thread is not seen.
+``io/hdf5.read_info()`` counts what that thread does instead, since the
+process started (read it twice and take the difference): ``batches`` and
+``bytes`` read, ``read_s``, the seconds spent inside the reader's read
+(for a file, the disk or page-cache read and the copies into the arrays
+handed over), and ``put_wait_s``, the seconds it was blocked on a full
+queue because the loop had not yet taken the batches before.
 
 The spans, each with its parent:
 
+* ``capture.align``: the offset search of ``io/hdf5.CaptureReader``
+  when it opens a capture: the head of both channels read, converted on
+  the host and cross-correlated (``ops/xcorr.find_channel_offset``) until
+  the offset is on the host. Entered on the caller's thread, before the
+  host loop's spans.
 * ``capture.open``: what a call of ``pipeline.run_capture`` or
   ``wideband.run_wideband_capture`` does before its first batch (the
   batches planned, the prefetch reader started, the host buffers made;

@@ -298,6 +298,7 @@ def run_wideband_capture(reader, cfg: RadarConfig,
                         print(f"\r  processed {done}/{total} wideband CPIs",
                               end="", flush=True)
     finally:
+        prefetch.close()
         feed.close()
         if own_writers:
             for w in writers.values():

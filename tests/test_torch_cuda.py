@@ -1655,3 +1655,51 @@ def test_stream_graphs_match_eager(cuda):
         np.testing.assert_array_equal(r.caf, caf.cpu().numpy())
         np.testing.assert_array_equal(
             r.cfar, cfar_2d(caf.abs(), *sp.cfar_kernel).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_file_capture_maps_equal_the_ring_path(cuda, tmp_path):
+    """cli.process's sequence on the card over a 25-frame int16 HDF5
+    capture of the benchmark's fm_upstream_file geometry (an 8-frame ring
+    tiled, a planted skew of 31,415 samples, the reference channel
+    leading): the offset search finds the skew exactly, and run_capture
+    writes 24 maps bit for bit as it does over a ring reader of the same
+    int16 frames."""
+    from benchmark.core import cells, scene
+    from benchmark.reference import geometry
+    from benchmark.traffic import file_capture, ring_capture
+    from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.io.hdf5 import CaptureReader
+    from passiveradar_torch.io.writers import (MapWriter, hdf5_backend,
+                                               write_metadata)
+    cell = cells.find("fm_file")
+    g = geometry.derive(cell.config)
+    ref, srv = scene.make_ring(g, cell.mix["scene"], 8, 3, cuda)
+    rings = [scene.to_int16_pairs(x, g["int16_scale"]) for x in (ref, srv)]
+    del ref, srv
+    path = str(tmp_path / "cap.h5")
+    file_capture.write_capture(path, cell.config, *rings, 25, -31415)
+    cfg = derive_config(dict(cell.config, input_file=path, num_frames=24,
+                             output_fname=str(tmp_path / "XAMBG")))
+    reader = CaptureReader(cfg, device=cuda)
+    try:
+        assert reader.offset == -31415 and reader.num_frames == 25
+        total = pl.capture_frame_count(reader, cfg)
+        writer = MapWriter(cfg, total)
+        try:
+            assert pl.run_capture(reader, writer, cfg, progress=False,
+                                  device=cuda) == 24
+        finally:
+            writer.close()
+    finally:
+        reader.close()
+    write_metadata(cfg, total)
+    margin = cfg.frame_batch + 2
+    ring = ring_capture.RingReader(
+        *(np.concatenate([x, x[:margin]]) for x in rings), 8, 0, 25)
+    want = _MemWriter((24, cfg.num_doppler_cells, cfg.num_range_cells + 1))
+    pl.run_capture(ring, want, cfg, progress=False, device=cuda)
+    with hdf5_backend().File(cfg.range_doppler_map_fname, "r") as f:
+        assert int(f["/xambg"].attrs["frames_done"]) == 24
+        got = np.moveaxis(np.asarray(f["/xambg"][:, :, :]), 2, 0)
+    np.testing.assert_array_equal(got, want.maps)
