@@ -19,7 +19,11 @@ arrays (``io/synthetic.write_synth_capture`` writes either, by the path's
 
 The offset search runs inside the span ``capture.align`` (spans.py).
 ``read_info()`` gives what every prefetch reader's thread has read since
-the process started, as ``feed.stage_info()`` gives the feeds.
+the process started, as ``feed.stage_info()`` gives the feeds. Where the
+values delivered are the values stored (separate-channel datasets of an
+HDF5 file, int16 shipped raw or float32 read as float32 or complex64),
+the thread reads each batch straight into buffers that it reuses
+(``CaptureReader.fill_frames``, one ``read_direct`` a channel).
 """
 
 from __future__ import annotations
@@ -46,10 +50,13 @@ _totals_lock = threading.Lock()
 def read_info() -> dict:
     """What every PrefetchReader's thread did since the process started:
     ``batches`` and ``bytes`` read, ``read_s`` (seconds inside the
-    reader's read) and ``put_wait_s`` (seconds blocked on a full queue)."""
+    reader's read), ``put_wait_s`` (seconds blocked on a full queue),
+    ``direct`` (batches read straight into a pooled buffer pair) and
+    ``buffers`` (pooled buffer pairs allocated)."""
     with _totals_lock:
         return {k: _totals[k]
-                for k in ("batches", "bytes", "read_s", "put_wait_s")}
+                for k in ("batches", "bytes", "read_s", "put_wait_s",
+                          "direct", "buffers")}
 
 
 def _count(**counts) -> None:
@@ -153,18 +160,23 @@ class CaptureReader:
         self.frame_margin_after = process_index < process_count - 1
         return self
 
+    def _channel_slices(self, start: int, count: int):
+        """The two separate-channel datasets' slices of ``count`` frames
+        from ``start`` (int16 or float32 values, two a complex sample)."""
+        s_c = (self._first_frame + start) * self.frame_len_c
+        e_c = s_c + count * self.frame_len_c
+        return tuple(slice(2 * (s_c + off), 2 * (e_c + off))
+                     for off in (self._ref_off, self._srv_off))
+
     def read_raw_frames(self, start: int, count: int):
         """(count, input_chunk_length) float32 interleaved IQ per channel."""
         if self.interleaved:
             ref, srv = self.read_iq_frames(start, count)
             return (ref.view(np.float32).reshape(count, self.frame_len),
                     srv.view(np.float32).reshape(count, self.frame_len))
-        s_c = (self._first_frame + start) * self.frame_len_c
-        e_c = s_c + count * self.frame_len_c
-        ref = self._to_f32(np.asarray(
-            self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)]))
-        srv = self._to_f32(np.asarray(
-            self._srv[2 * (s_c + self._srv_off):2 * (e_c + self._srv_off)]))
+        rs, ss = self._channel_slices(start, count)
+        ref = self._to_f32(np.asarray(self._ref[rs]))
+        srv = self._to_f32(np.asarray(self._srv[ss]))
         return (ref.reshape(count, self.frame_len),
                 srv.reshape(count, self.frame_len))
 
@@ -181,14 +193,9 @@ class CaptureReader:
             ref, srv = self.read_raw_frames(start, count)
             return (ref.reshape(count, self.frame_len_c, 2),
                     srv.reshape(count, self.frame_len_c, 2))
-        s_c = (self._first_frame + start) * self.frame_len_c
-        e_c = s_c + count * self.frame_len_c
-        ref = np.asarray(
-            self._ref[2 * (s_c + self._ref_off):2 * (e_c + self._ref_off)])
-        srv = np.asarray(
-            self._srv[2 * (s_c + self._srv_off):2 * (e_c + self._srv_off)])
-        return (ref.reshape(count, self.frame_len_c, 2),
-                srv.reshape(count, self.frame_len_c, 2))
+        rs, ss = self._channel_slices(start, count)
+        return (np.asarray(self._ref[rs]).reshape(count, self.frame_len_c, 2),
+                np.asarray(self._srv[ss]).reshape(count, self.frame_len_c, 2))
 
     def read_iq_frames(self, start: int, count: int):
         """(count, input_chunk_length//2) complex64 per channel."""
@@ -208,6 +215,29 @@ class CaptureReader:
         return (ref[r0:r0 + n].reshape(count, self.frame_len_c),
                 srv[s0:s0 + n].reshape(count, self.frame_len_c))
 
+    def fill_layout(self, mode: str):
+        """(frame shape, dtype) of the frames of ``read_pair_frames``
+        ("pair") or ``read_iq_frames`` ("iq"), where ``fill_frames`` reads
+        them straight into a caller's buffers; None where it cannot, and
+        the caller reads with those: a zarr store, the 4-way interleaved
+        layout, or stored values that the host converts."""
+        want = np.dtype(self.pair_dtype if mode == "pair" else np.float32)
+        if (self._file is None or self.interleaved
+                or self._ref.dtype != want or self._srv.dtype != want):
+            return None
+        if mode == "pair":
+            return (self.frame_len_c, 2), want
+        return (self.frame_len_c,), np.dtype(np.complex64)
+
+    def fill_frames(self, start: int, count: int, out) -> None:
+        """The frames that ``read_pair_frames`` or ``read_iq_frames``
+        return, written into ``out`` (a C-contiguous array a channel, of a
+        layout ``fill_layout`` gives), by one ``read_direct`` a channel:
+        straight into ``out``'s memory where the dataset is contiguous."""
+        for ds, sl, dest in zip((self._ref, self._srv),
+                                self._channel_slices(start, count), out):
+            ds.read_direct(dest.reshape(-1).view(ds.dtype), sl)
+
     def close(self):
         if self._file is not None:
             self._file.close()
@@ -215,6 +245,16 @@ class CaptureReader:
 
 class PrefetchReader:
     """Wraps a CaptureReader with a one-batch-ahead background thread.
+
+    Where the reader can fill a caller's buffers (its
+    ``fill_layout(mode)`` is not None), the thread reads each batch into a
+    pair of buffers taken from a pool that this reader keeps, each sized to
+    the plan's largest read, and yields ``[:count]`` views of them: **a
+    batch's arrays are valid until the next one is requested**, when the
+    pair goes back to the pool. The thread allocates a pair only when none
+    is free, so at most four: the consumer's, the queue's two and the one
+    it fills. Other readers' arrays (a ring's views, a zarr store's,
+    converted values) are yielded as the reader returns them.
 
     ``close()`` stops the thread (the caller's loop ended early or failed):
     no read starts after it, and the queue is drained so that a thread
@@ -227,9 +267,23 @@ class PrefetchReader:
         self._batches = list(batches)
         self._read = getattr(reader, {"iq": "read_iq_frames",
                                       "pair": "read_pair_frames"}[mode])
+        layout = getattr(reader, "fill_layout", None)
+        self._layout = (layout(mode) if layout is not None and self._batches
+                        else None)
+        self._free: collections.deque = collections.deque()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
+
+    def _pair(self) -> tuple:
+        """A free buffer pair of the pool, or a new one."""
+        try:
+            return self._free.pop()
+        except IndexError:
+            shape, dtype = self._layout
+            most = max(count for _, count in self._batches)
+            _count(buffers=1)
+            return tuple(np.empty((most, *shape), dtype) for _ in range(2))
 
     def _work(self):
         try:
@@ -237,11 +291,16 @@ class PrefetchReader:
                 if self._stop.is_set():
                     return
                 t0 = time.perf_counter()
-                arrays = self._read(start, count)
+                if self._layout is None:
+                    pair, arrays = None, self._read(start, count)
+                else:
+                    pair = self._pair()
+                    arrays = tuple(b[:count] for b in pair)
+                    self.reader.fill_frames(start, count, arrays)
                 t1 = time.perf_counter()
                 _count(batches=1, bytes=sum(a.nbytes for a in arrays),
-                       read_s=t1 - t0)
-                self._q.put((start, count, arrays))
+                       read_s=t1 - t0, direct=int(pair is not None))
+                self._q.put((start, count, arrays, pair))
                 _count(put_wait_s=time.perf_counter() - t1)
             self._q.put(None)
         except BaseException as e:  # hand the failure to the consumer
@@ -254,7 +313,10 @@ class PrefetchReader:
                 return
             if isinstance(item, BaseException):
                 raise item
-            yield item
+            start, count, arrays, pair = item
+            yield start, count, arrays
+            if pair is not None:        # the next batch is asked for
+                self._free.append(pair)
 
     def _drain(self) -> None:
         try:
@@ -271,3 +333,4 @@ class PrefetchReader:
         self._drain()
         self._thread.join()
         self._drain()
+        self._free.clear()

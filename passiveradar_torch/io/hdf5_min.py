@@ -28,8 +28,9 @@ equals the file's size after every ``flush`` and ``close``.
 Whatever else a file holds raises UnsupportedHDF5 naming the feature
 (superblock v2/v3, v2 object headers, the newer chunk indexes, new-style
 groups, other filters, big-endian or other datatypes): nothing is read
-wrong silently. Reads are ``os.pread`` calls on one descriptor, so a
-background thread may read while the caller computes.
+wrong silently. Reads are ``os.preadv`` calls on one descriptor, so a
+background thread may read while the caller computes; ``read_direct``
+reads a contiguous dataset's bytes straight into the caller's array.
 """
 
 from __future__ import annotations
@@ -584,7 +585,7 @@ class Group:
 class Dataset:
     """A contiguous or chunked dataset: ``.shape``, ``.dtype``,
     ``.chunks``, ``.maxshape``, ``len()``, basic slicing to read and write,
-    ``resize``, ``attrs``."""
+    ``read_direct``, ``resize``, ``attrs``."""
 
     def __init__(self, f: "File", addr: int, name: str,
                  header: _Header | None = None):
@@ -812,6 +813,49 @@ class Dataset:
                 slice(a, a + (m - 1) * b + 1, b) for a, b, m, _ in rest)]
         return out[squeeze]
 
+    def read_direct(self, dest: np.ndarray, source_sel=None,
+                    dest_sel=None) -> None:
+        """h5py's ``read_direct``: ``dest[dest_sel] = self[source_sel]``,
+        each selection a basic index (None: all of it), ``dest`` a
+        C-contiguous writeable array (else TypeError, as a selection that
+        does not broadcast to ``dest[dest_sel]``). A contiguous dataset of
+        ``dest``'s dtype, read over whole rows into a C-contiguous part of
+        ``dest`` of the selection's shape, is read straight into that
+        memory; any other read goes through ``__getitem__``."""
+        if not (isinstance(dest, np.ndarray) and dest.flags.c_contiguous
+                and dest.flags.writeable):
+            raise TypeError("Array must be C-contiguous and writable")
+        key = ... if source_sel is None else source_sel
+        where = ... if dest_sel is None else dest_sel
+        sel = _normalize(key, self.shape)
+        shape = tuple(n for _, _, n, is_int in sel if not is_int)
+        out = dest[where]
+        try:
+            fits = np.broadcast_shapes(shape, out.shape) == out.shape
+        except ValueError:
+            fits = False
+        if not fits:
+            raise TypeError(f"Can't broadcast {shape} -> {out.shape}")
+        if self._direct(sel, shape, out, dest):
+            (s, *_), row = sel[0], math.prod(self.shape[1:])
+            self.file._read_into(
+                self._addr + s * row * self.dtype.itemsize,
+                memoryview(out.reshape(-1).view(np.uint8)))
+        else:
+            dest[where] = self[key]
+
+    def _direct(self, sel, shape, out: np.ndarray, dest: np.ndarray) -> bool:
+        """Whether the selection ``sel`` (of ``shape``) is one run of the
+        file's bytes that lands as it is stored in ``out``, a view of
+        ``dest``'s memory."""
+        return (self.chunks is None and self._addr != UNDEF and bool(sel)
+                and out.size > 0 and out.shape == shape
+                and out.dtype == self.dtype and out.flags.c_contiguous
+                and (out is dest or np.may_share_memory(out, dest))
+                and (sel[0][1] == 1 or sel[0][2] == 1)
+                and all(a == 0 and b == 1 and m == n for (a, b, m, _), n
+                        in zip(sel[1:], self.shape[1:])))
+
     def __array__(self, dtype=None, copy=None):
         full = self[...]
         return full if dtype is None else full.astype(dtype)
@@ -983,14 +1027,19 @@ class File(Group):
     # raw IO
     def _read(self, off: int, n: int) -> bytearray:
         out = bytearray(n)
-        view, got = memoryview(out), 0
+        self._read_into(off, memoryview(out))
+        return out
+
+    def _read_into(self, off: int, view: memoryview) -> None:
+        """Fill ``view`` (bytes) from the file at ``off``, one os.preadv
+        after another until it is full; a read past the end raises."""
+        n, got = len(view), 0
         while got < n:
             k = os.preadv(self._fd, [view[got:]], off + got)
             if k == 0:
                 raise OSError(f"{self.filename}: {n} bytes at {off} run "
                               "past the end of the file")
             got += k
-        return out
 
     def _write(self, off: int, data) -> None:
         if isinstance(data, np.ndarray):

@@ -1658,20 +1658,25 @@ def test_stream_graphs_match_eager(cuda):
 
 
 @pytest.mark.cuda
-def test_file_capture_maps_equal_the_ring_path(cuda, tmp_path):
+def test_file_capture_maps_equal_the_ring_path(cuda, tmp_path, monkeypatch):
     """cli.process's sequence on the card over a 25-frame int16 HDF5
-    capture of the benchmark's fm_upstream_file geometry (an 8-frame ring
-    tiled, a planted skew of 31,415 samples, the reference channel
-    leading): the offset search finds the skew exactly, and run_capture
-    writes 24 maps bit for bit as it does over a ring reader of the same
-    int16 frames."""
+    capture of the benchmark's fm_upstream_file geometry under TMPDIR (an
+    8-frame ring tiled, a planted skew of 31,415 samples, the reference
+    channel leading), read by io/hdf5_min: the offset search finds the
+    skew exactly, every batch is read straight into the prefetch reader's
+    pool (``read_info()``'s ``direct``, at most four buffer pairs), and
+    run_capture writes 24 maps bit for bit as it does over a ring reader
+    of the same int16 frames."""
     from benchmark.core import cells, scene
     from benchmark.reference import geometry
     from benchmark.traffic import file_capture, ring_capture
     from passiveradar_torch import pipeline as pl
+    from passiveradar_torch.io import hdf5 as port_hdf5
+    from passiveradar_torch.io import hdf5_min
     from passiveradar_torch.io.hdf5 import CaptureReader
     from passiveradar_torch.io.writers import (MapWriter, hdf5_backend,
                                                write_metadata)
+    monkeypatch.setattr(port_hdf5, "hdf5_backend", lambda: hdf5_min)
     cell = cells.find("fm_file")
     g = geometry.derive(cell.config)
     ref, srv = scene.make_ring(g, cell.mix["scene"], 8, 3, cuda)
@@ -1682,7 +1687,9 @@ def test_file_capture_maps_equal_the_ring_path(cuda, tmp_path):
     cfg = derive_config(dict(cell.config, input_file=path, num_frames=24,
                              output_fname=str(tmp_path / "XAMBG")))
     reader = CaptureReader(cfg, device=cuda)
+    before = port_hdf5.read_info()
     try:
+        assert isinstance(reader._file, hdf5_min.File)
         assert reader.offset == -31415 and reader.num_frames == 25
         total = pl.capture_frame_count(reader, cfg)
         writer = MapWriter(cfg, total)
@@ -1694,6 +1701,10 @@ def test_file_capture_maps_equal_the_ring_path(cuda, tmp_path):
     finally:
         reader.close()
     write_metadata(cfg, total)
+    after = port_hdf5.read_info()
+    assert after["direct"] - before["direct"] == \
+        after["batches"] - before["batches"] == -(-24 // cfg.frame_batch)
+    assert 1 <= after["buffers"] - before["buffers"] <= 4
     margin = cfg.frame_batch + 2
     ring = ring_capture.RingReader(
         *(np.concatenate([x, x[:margin]]) for x in rings), 8, 0, 25)

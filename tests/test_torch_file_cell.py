@@ -4,14 +4,16 @@ at the small FM geometry: the capture the traffic writes and
 ``io/hdf5.CaptureReader``'s offset search, the maps of ``run_capture``
 over the aligned file against those over a ring of the same int16 frames,
 a small copy of the cell through the harness, planted faults that read
-not correct, the ``align_ms.file`` reader, and the prefetch reader's
-counters and ``close()``."""
+not correct, the ``align_ms.file`` reader, the prefetch reader's
+counters and ``close()``, and its batches read straight into pooled
+buffers against the reader's fresh arrays."""
 
 import importlib.util
 import io
 import os
 import re
 import tempfile
+import time
 import types
 
 import numpy as np
@@ -418,3 +420,185 @@ def test_run_capture_closes_the_prefetch_reader_when_a_write_fails(
     assert len(made) == 1
     made[0]._thread.join(timeout=5)
     assert not made[0]._thread.is_alive()
+
+
+# ---- (g) the prefetch reader's pooled buffers over an HDF5 capture ----------
+
+def _capture_reader(monkeypatch, tmp_path, rings, frames, k, backend,
+                    dtype="int16", **params):
+    """A CaptureReader through ``backend`` over the traffic's capture of
+    ``frames`` aligned frames with skew ``k``; as float32 values (the int16
+    values times the scale) for ``dtype`` "float32"."""
+    mod = _backend(backend)
+    monkeypatch.setattr(port_hdf5, "hdf5_backend", lambda: mod)
+    p = dict(_params(), **params)
+    path = str(tmp_path / "cap.h5")
+    file_capture.write_capture(path, p, *rings, frames, k, hdf5_min)
+    if dtype == "float32":
+        with hdf5_min.File(path, "r") as f:
+            values = {key: f[p[key]][:].astype(np.float32) * p["int16_scale"]
+                      for key in ("input_ref_path", "input_srv_path")}
+        with hdf5_min.File(path, "w") as f:
+            for key, x in values.items():
+                f.create_dataset(p[key], data=x)
+    return port_hdf5.CaptureReader(derive_config(dict(p, input_file=path)),
+                                   device="cpu")
+
+
+def _info_delta(before):
+    after = port_hdf5.read_info()
+    return {k: after[k] - before[k] for k in after}
+
+
+class _Done:
+    frames_done = 0
+
+
+@pytest.mark.parametrize("backend", ["hdf5_min", "h5py"])
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("k", [1234, -1234])
+@pytest.mark.parametrize("dtype,mode", [("int16", "pair"),
+                                        ("float32", "pair"),
+                                        ("float32", "iq"), ("int16", "iq")])
+def test_prefetch_batches_bit_equal_the_readers_fresh_arrays(
+        tmp_path, monkeypatch, rings, backend, shard, k, dtype, mode):
+    """Every batch of ``capture_batches``' plan (the first of bf + 1
+    frames, a short last one; a sharded reader's margins on both sides)
+    through the prefetch reader equals ``read_pair_frames`` /
+    ``read_iq_frames``' fresh arrays bit for bit, in their dtype. Where the
+    values delivered are the values stored, every batch is read straight
+    into the pool (``direct``), of at most four pairs; int16 read as
+    complex64 is converted on the host and keeps the reader's arrays."""
+    reader = _capture_reader(monkeypatch, tmp_path, rings, 13, k, backend,
+                             dtype, num_frames=11, frame_batch=3)
+    try:
+        assert reader.offset == k
+        if shard:
+            reader.shard(1, 3)
+            assert reader.frame_margin_before and reader.frame_margin_after
+        total, batches = pipeline.capture_batches(reader, _Done(),
+                                                  reader.cfg, 3)
+        reads = [b.read for b in batches]
+        if not shard:
+            assert reads[0] == (0, 4) and reads[-1][1] < 3
+        fill = reader.fill_layout(mode) is not None
+        assert fill == (dtype == "float32" or mode == "pair")
+        before = port_hdf5.read_info()
+        pf = port_hdf5.PrefetchReader(reader, reads, mode=mode)
+        read = getattr(reader, f"read_{mode}_frames")
+        n = 0
+        for (start, count, got), want in zip(pf, reads):
+            assert (start, count) == want
+            for a, b in zip(got, read(start, count)):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                np.testing.assert_array_equal(a, b)
+            n += 1
+        pf.close()
+    finally:
+        reader.close()
+    d = _info_delta(before)
+    assert n == d["batches"] == len(reads)
+    assert d["direct"] == (len(reads) if fill else 0)
+    if fill:
+        assert 1 <= d["buffers"] <= min(4, len(reads))
+    else:
+        assert d["buffers"] == 0
+
+
+def test_prefetch_pool_reads_20_batches_into_at_most_four_pairs(
+        tmp_path, monkeypatch, rings):
+    """20 batches through a consumer slower than the reader (the queue
+    full, the thread waiting): ``direct`` reads 20 and ``buffers`` at most
+    4, and each batch still holds its frames until the next is asked for."""
+    reader = _capture_reader(monkeypatch, tmp_path, rings, 21, -77,
+                             "hdf5_min", num_frames=20, frame_batch=1)
+    try:
+        _, batches = pipeline.capture_batches(reader, _Done(), reader.cfg, 1)
+        reads = [b.read for b in batches]
+        assert len(reads) == 20
+        before = port_hdf5.read_info()
+        pf = port_hdf5.PrefetchReader(reader, reads)
+        for start, count, got in pf:
+            time.sleep(0.02)            # the thread runs ahead meanwhile
+            for a, b in zip(got, reader.read_pair_frames(start, count)):
+                np.testing.assert_array_equal(a, b)
+        pf.close()
+    finally:
+        reader.close()
+    d = _info_delta(before)
+    assert d["batches"] == d["direct"] == 20
+    assert 1 <= d["buffers"] <= 4
+
+
+@pytest.mark.parametrize("store", ["zarr", "interleaved"])
+def test_prefetch_keeps_the_readers_arrays_where_it_cannot_fill(
+        tmp_path, store):
+    """A zarr store and the 4-way interleaved layout: ``fill_layout`` is
+    None in both modes, and the prefetch reader yields the reader's own
+    arrays, equal to a fresh read, with nothing pooled."""
+    from passiveradar_torch.io.synthetic import write_synth_capture
+    path = str(tmp_path / ("cap.zarr" if store == "zarr" else "cap.h5"))
+    cfg = derive_config(dict(_params(), input_file=path, frame_batch=2,
+                             interleaved_input_channels=store != "zarr"))
+    write_synth_capture(path, cfg, 5, dtype=np.int16)
+    reader = port_hdf5.CaptureReader(cfg, device="cpu")
+    try:
+        assert reader.fill_layout("pair") is None
+        assert reader.fill_layout("iq") is None
+        before = port_hdf5.read_info()
+        for start, count, got in port_hdf5.PrefetchReader(
+                reader, [(0, 3), (3, 2)]):
+            for a, b in zip(got, reader.read_pair_frames(start, count)):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        reader.close()
+    d = _info_delta(before)
+    assert d["batches"] == 2 and d["direct"] == d["buffers"] == 0
+
+
+def test_prefetch_yields_a_plain_readers_own_arrays():
+    """A reader with only ``read_pair_frames`` (a ring, a live SDR): each
+    batch is the very arrays it returned, and nothing is pooled."""
+    returned = []
+
+    class Recorded(_Frames):
+        def read_pair_frames(self, start, count):
+            returned.append(super().read_pair_frames(start, count))
+            return returned[-1]
+
+    before = port_hdf5.read_info()
+    got = [arrays for _, _, arrays in port_hdf5.PrefetchReader(
+        Recorded(), [(0, 2), (2, 3), (5, 1)])]
+    d = _info_delta(before)
+    assert len(got) == len(returned) == 3
+    assert all(a is b for g, r in zip(got, returned) for a, b in zip(g, r))
+    assert d["batches"] == 3 and d["direct"] == d["buffers"] == 0
+
+
+def test_file_maps_through_hdf5_min_direct_reads_bit_equal_the_ring_maps(
+        tmp_path, monkeypatch, rings):
+    """``run_capture`` over the aligned file read by io/hdf5_min straight
+    into the pool (every batch ``direct``) writes the same 12 maps bit for
+    bit as over a RingReader of the same int16 frames."""
+    reader = _capture_reader(monkeypatch, tmp_path, rings, 13, 4321,
+                             "hdf5_min", num_frames=12)
+    assert isinstance(reader._file, hdf5_min.File)
+    cfg = reader.cfg
+    from_file = ring_capture.Sink(range(12))
+    before = port_hdf5.read_info()
+    try:
+        pipeline.run_capture(reader, from_file, cfg, progress=False,
+                             device="cpu")
+    finally:
+        reader.close()
+    d = _info_delta(before)
+    assert d["direct"] == d["batches"] == -(-12 // cfg.frame_batch)
+    assert 1 <= d["buffers"] <= 4
+    margin = cfg.frame_batch + 2
+    ref, srv = (np.concatenate([x, x[:margin]]) for x in rings)
+    from_ring = ring_capture.Sink(range(12))
+    pipeline.run_capture(ring_capture.RingReader(ref, srv, 6, 0, 13),
+                         from_ring, cfg, progress=False, device="cpu")
+    assert sorted(from_file.kept) == list(range(12))
+    for i in range(12):
+        np.testing.assert_array_equal(from_file.kept[i], from_ring.kept[i])

@@ -175,6 +175,122 @@ def test_subset_names_what_it_cannot_read(tmp_path, case):
     assert names[case] in str(e.value)
 
 
+# -- read_direct ---------------------------------------------------------------
+
+# (dataset dtype and h5py options, source selection, destination shape, the
+# part written when smaller (a pooled buffer's [:n]), destination dtype and
+# selection; whether the read goes straight into the destination's memory)
+_N = 5000
+READS = {
+    "int16_head": dict(dtype="i2", src=np.s_[0:1200], dest=(1200,)),
+    "int16_tail": dict(dtype="i2", src=np.s_[3800:_N], dest=(1200,)),
+    "float32_head": dict(dtype="f4", src=np.s_[0:1200], dest=(1200,)),
+    "float32_tail": dict(dtype="f4", src=np.s_[3800:_N], dest=(1200,)),
+    "short_last_into_a_larger_buffer": dict(
+        dtype="i2", src=np.s_[4300:_N], dest=(2000,), part=700),
+    "whole": dict(dtype="f4", src=None, dest=(_N,)),
+    "rows": dict(dtype="f4", shape=(_N // 2, 2), src=np.s_[10:400],
+                 dest=(390, 2)),
+    "dest_sel": dict(dtype="i2", src=np.s_[100:600], dest=(800,),
+                     dest_sel=np.s_[150:650]),
+    "dest_sel_strided": dict(dtype="i2", src=np.s_[100:600], dest=(1000,),
+                             dest_sel=np.s_[::2], straight=False),
+    "dest_sel_fancy": dict(dtype="i2", src=np.s_[100:103], dest=(10,),
+                           dest_sel=np.s_[[1, 4, 8]], straight=False),
+    "strided_source": dict(dtype="i2", src=np.s_[0:1000:2], dest=(500,),
+                           straight=False),
+    "converted": dict(dtype="i2", src=np.s_[0:1200], dest=(1200,),
+                      dest_dtype="f4", straight=False),
+    "chunked": dict(dtype="i2", kw=dict(chunks=(512,)), src=np.s_[700:1900],
+                    dest=(1200,), straight=False),
+    "filtered": dict(dtype="f4", kw=dict(chunks=(512,), compression="gzip",
+                                         shuffle=True),
+                     src=np.s_[3800:_N], dest=(1200,), straight=False),
+    "past_the_end": dict(dtype="i2", src=np.s_[4800:5200], dest=(400,),
+                         raises=True),
+}
+
+
+@pytest.mark.parametrize("case", list(READS))
+def test_read_direct_matches_h5py(tmp_path, monkeypatch, case):
+    """``Dataset.read_direct`` against h5py's on h5py's file: the same
+    destination bit for bit (what it does not select left as it was), equal
+    to ``ds[source_sel]`` placed at ``dest_sel``; straight into the
+    destination's memory where the dataset is contiguous and the part is
+    contiguous and of the stored dtype, else through ``__getitem__``; a
+    selection past the end raises in both."""
+    c = READS[case]
+    data = (np.random.default_rng(11).standard_normal(c.get("shape", (_N,)))
+            * 3000).astype(c["dtype"])
+    path = str(tmp_path / "d.h5")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("/d", data=data, **c.get("kw", {}))
+    args = (c["src"], c.get("dest_sel"))
+
+    def fresh():
+        buf = np.full(c["dest"], -7, c.get("dest_dtype", c["dtype"]))
+        return buf, buf[:c["part"]] if "part" in c else buf
+
+    def read(ds):
+        buf, dest = fresh()
+        if c.get("raises"):
+            with pytest.raises(TypeError, match="broadcast"):
+                ds.read_direct(dest, *args)
+        else:
+            ds.read_direct(dest, *args)
+        return buf
+
+    with h5py.File(path, "r") as f:
+        want = read(f["/d"])
+    calls = []
+    getitem = hdf5_min.Dataset.__getitem__
+    monkeypatch.setattr(hdf5_min.Dataset, "__getitem__",
+                        lambda ds, key: calls.append(key) or getitem(ds, key))
+    with hdf5_min.File(path) as f:
+        got = read(f["/d"])
+        assert bool(calls) == (not c.get("straight", True)
+                               and not c.get("raises")), calls
+        placed, dest = fresh()
+        if not c.get("raises"):
+            dest[... if args[1] is None else args[1]] = f["/d"][
+                ... if args[0] is None else args[0]]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, placed)
+
+
+def test_read_direct_raises_past_the_end_of_the_file(tmp_path):
+    """A contiguous dataset whose bytes the file no longer holds (cut
+    short while open): a direct read into them raises, as ``__getitem__``
+    does, and one before the cut still reads."""
+    path = str(tmp_path / "d.h5")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("/d", data=np.arange(_N, dtype=np.int16))
+    with hdf5_min.File(path) as f:
+        os.truncate(path, os.path.getsize(path) - 1000)
+        head = np.empty(100, np.int16)
+        f["/d"].read_direct(head, np.s_[:100])
+        np.testing.assert_array_equal(head, np.arange(100))
+        with pytest.raises(OSError, match="past the end of the file"):
+            f["/d"].read_direct(np.empty(1200, np.int16), np.s_[3800:])
+        with pytest.raises(OSError, match="past the end of the file"):
+            f["/d"][3800:]
+
+
+def test_read_direct_refuses_a_destination_it_cannot_write(tmp_path):
+    path = str(tmp_path / "d.h5")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("/d", data=np.arange(100, dtype=np.int16))
+    with hdf5_min.File(path) as f:
+        for dest in (np.empty(200, np.int16)[::2],
+                     np.empty((10, 10), np.int16, order="F")):
+            with pytest.raises(TypeError, match="C-contiguous"):
+                f["/d"].read_direct(dest)
+        frozen = np.empty(100, np.int16)
+        frozen.flags.writeable = False
+        with pytest.raises(TypeError, match="writable"):
+            f["/d"].read_direct(frozen)
+
+
 # -- h5py reading the subset's files ------------------------------------------
 
 @pytest.mark.parametrize("written", [6, 4])

@@ -273,19 +273,25 @@ def jax_stack7(capture7):
 def test_run_capture_stages_through_the_feed(capture7, jax_stack7, shards):
     """run_capture on one CPU device and on cpu_mesh(2) assembles every
     batch through feed.CardFeed on host tensors: three batches of 3, each
-    frame read from the capture once, two halo slots a channel reused at
-    each batch after the first; the maps agree with the JAX package's
+    frame read from the capture once (by the reader's ``fill_frames`` into
+    the prefetch reader's pool, or by ``read_pair_frames``), two halo slots
+    a channel reused at each batch after the first; the maps agree with the JAX package's
     run_capture at the pipeline bound (1e-4 of the peak, argmax equal)."""
     from passiveradar_torch import feed
     d, _, cfg, _ = capture7
     reader = CaptureReader(cfg, estimate_offset=False, device="cpu")
-    read, plain = [], reader.read_pair_frames
+    read, plain, plain_fill = [], reader.read_pair_frames, reader.fill_frames
 
     def counted(start, count):
         read.extend(range(start, start + count))
         return plain(start, count)
 
+    def counted_fill(start, count, out):
+        read.extend(range(start, start + count))
+        plain_fill(start, count, out)
+
     reader.read_pair_frames = counted
+    reader.fill_frames = counted_fill
     w = MapWriter(cfg, 7, str(d / f"feed_{shards}.hdf5"))
     before = feed.stage_info()
     kw = dict(device="cpu") if shards is None else dict(
